@@ -56,6 +56,9 @@ def main() -> None:
                          "(0 = run all epochs); the schedule still spans "
                          "the full epoch count")
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--peak-tflops", type=float, default=None,
+                    help="the device's published peak (dense TFLOP/s at "
+                         "this dtype) for the MFU column; omitted if unset")
     ap.add_argument("--out", default="",
                     help="save a Generator checkpoint here when done")
     ap.add_argument("--seed", type=int, default=0)
@@ -68,12 +71,12 @@ def main() -> None:
         jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from mediquery_rag_tpu.config import DecoderConfig, TrainConfig
-    from mediquery_rag_tpu.ingest import parse_corpus_file
-    from mediquery_rag_tpu.models.byte_tokenizer import ByteTokenizer
-    from mediquery_rag_tpu.models.train_lm import (
+    from mediquery_rag.config import DecoderConfig, TrainConfig
+    from mediquery_rag.ingest import parse_corpus_file
+    from mediquery_rag.models.byte_tokenizer import ByteTokenizer
+    from mediquery_rag.models.train_lm import (
         LMLoader, LMTrainer, corpus_lm_texts)
-    from mediquery_rag_tpu.obs.metrics import lm_matmul_flops, mfu
+    from mediquery_rag.obs.metrics import lm_matmul_flops, mfu
 
     h, l_, heads, kvh, mlp = MODELS[args.model]
     cfg = DecoderConfig(hidden=h, layers=l_, heads=heads, kv_heads=kvh,
@@ -122,7 +125,10 @@ def main() -> None:
                 "loss": round(loss, 4),
                 "grad_norm": round(float(metrics["grad_norm"]), 3),
                 "tok_per_s": round(toks / max(wall, 1e-9), 1),
-                "mfu_pct": round(100 * mfu(fpt, toks / max(wall, 1e-9)), 1),
+                "mfu_pct": round(100 * mfu(
+                    fpt, toks / max(wall, 1e-9),
+                    args.peak_tflops * 1e12), 1)
+                if args.peak_tflops else None,
             }), flush=True)
             if args.budget_s and wall > args.budget_s:
                 stop = True
@@ -130,7 +136,7 @@ def main() -> None:
             break
 
     if args.out:
-        from mediquery_rag_tpu.models.generate import Generator
+        from mediquery_rag.models.generate import Generator
         gen = Generator(cfg, params=jax.device_get(state.params))
         gen.save(args.out)
         print(f"saved -> {args.out}", flush=True)

@@ -1,4 +1,4 @@
-"""TPU-hosted LM decode throughput (the serving loop the reference rented
+"""on-device LM decode throughput (the serving loop the reference rented
 from Ollama's CPU GGML runtime, medical_engine.py:46).
 
 Decode at small batch is weight-BANDWIDTH bound: every token re-reads all
@@ -47,9 +47,10 @@ def main():
                          "(e.g. --prompt-len 3968 --max-len 4096)")
     ap.add_argument("--attn-impl", choices=("einsum", "flash"),
                     default="einsum",
-                    help="prefill attention (DecoderConfig.attn_impl); "
-                         "'flash' = Pallas online-softmax kernel, the "
-                         "long-context choice")
+                    help="prefill attention (DecoderConfig.attn_impl)")
+    ap.add_argument("--peak-tflops", type=float, default=None,
+                    help="the device's published peak (dense TFLOP/s at "
+                         "this dtype) for the MFU column; omitted if unset")
     ap.add_argument("--prefill-only", action="store_true",
                     help="time Decoder.prefill alone (TTFT proxy) instead "
                          "of the full prefill+decode generation loop")
@@ -58,11 +59,11 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from mediquery_rag_tpu.config import DecoderConfig
-    from mediquery_rag_tpu.models.byte_tokenizer import PAD_ID
-    from mediquery_rag_tpu.models.generate import Generator, _round_up
-    from mediquery_rag_tpu.obs.metrics import device_time
-    from mediquery_rag_tpu.obs.metrics import (
+    from mediquery_rag.config import DecoderConfig
+    from mediquery_rag.models.byte_tokenizer import PAD_ID
+    from mediquery_rag.models.generate import Generator, _round_up
+    from mediquery_rag.obs.metrics import device_time
+    from mediquery_rag.obs.metrics import (
         lm_matmul_flops as _flops, mfu as _mfu)
 
     for name in args.models.split(","):
@@ -74,8 +75,8 @@ def main():
         if args.weights in ("int8", "int4"):
             # compose init+quantize under ONE jit so the bf16 tree never
             # coexists with the quantized one (14 GB + 7 GB would OOM at 7B)
-            from mediquery_rag_tpu.models.decoder import Decoder
-            from mediquery_rag_tpu.ops.matvec import quantize_decoder_params
+            from mediquery_rag.models.decoder import Decoder
+            from mediquery_rag.ops.matvec import quantize_decoder_params
             bits = 8 if args.weights == "int8" else 4
             model = Decoder(cfg)
             params = jax.jit(
@@ -114,7 +115,9 @@ def main():
                         _flops(hidden=cfg.hidden, layers=cfg.layers,
                                mlp_dim=cfg.mlp_dim, vocab=cfg.vocab_size,
                                heads=cfg.heads, kv_heads=cfg.kv_heads,
-                               seq_len=S), b * S / t), 1),
+                               seq_len=S), b * S / t,
+                        args.peak_tflops * 1e12), 1)
+                    if args.peak_tflops else None,
                 }), flush=True)
                 continue
             run = gen._compiled(b, S, max_new)
@@ -129,8 +132,8 @@ def main():
                 emitted = b * max_new        # degenerate; count loop length
 
             rngs = jnp.stack([jax.random.PRNGKey(i) for i in range(4)])
-            # params must be an explicit argument: a closure would
-            # serialize the full weight tree into the remote-compile request
+            # params must be an explicit argument: a closure would bake the
+            # full weight tree into the compiled program as a constant
             t = device_time(
                 lambda r, i_, m, pp: run(pp, i_, m, jnp.float32(1.0), r,
                                          *tables),
@@ -157,7 +160,6 @@ def main():
                 "seconds_per_call": round(t, 4),
                 "tokens_per_s_total": round(emitted / t, 1),
                 "tokens_per_s_per_seq": round(emitted / b / t, 1),
-                "bw_bound_floor_tok_s": round(819e9 / bytes_, 1),
             }), flush=True)
         del gen
 

@@ -1,6 +1,6 @@
 """Embedding-forward benchmark (BASELINE config 2: query batch 1/8/64).
 
-Measures the TPU encoder's embed throughput/latency at the three batch
+Measures the device encoder's embed throughput/latency at the three batch
 sizes the reference's Ollama HTTP round trip served one-at-a-time.
 One JSON line per batch size.
 """
@@ -21,14 +21,17 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--peak-tflops", type=float, default=None,
+                    help="the device's published peak (dense TFLOP/s at "
+                         "this dtype) for the MFU column; omitted if unset")
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    from mediquery_rag_tpu.config import EmbedderConfig
-    from mediquery_rag_tpu.models import Embedder, HashCharTokenizer
-    from mediquery_rag_tpu.obs.metrics import (
+    from mediquery_rag.config import EmbedderConfig
+    from mediquery_rag.models import Embedder, HashCharTokenizer
+    from mediquery_rag.obs.metrics import (
         device_time, lm_matmul_flops, mfu)
 
     cfg = EmbedderConfig(layers=args.layers)
@@ -67,8 +70,9 @@ def main():
                                 heads=cfg.heads, kv_heads=None,
                                 seq_len=int(ids.shape[1]), causal=False,
                                 swiglu=False),
-                b * int(ids.shape[1]) / t), 1),
-            "backend": jax.default_backend(),
+                b * int(ids.shape[1]) / t, args.peak_tflops * 1e12), 1)
+            if args.peak_tflops else None,
+            "device": jax.devices()[0].device_kind,
         }))
 
 

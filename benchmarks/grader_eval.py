@@ -2,7 +2,7 @@
 
 VERDICT r1 ("no task metric for the grader ... contracts"): the reference
 grades retrieved docs with a yes/no LLM call (core/utils.py:64-72); our
-TPU-native grader is the cross-encoder (models/cross_encoder.py). This
+accelerator-native grader is the cross-encoder (models/cross_encoder.py). This
 benchmark trains it on the corpus and measures the *binary decision
 quality* on data/heldout_queries.tsv — phrasings the grader never saw:
 
@@ -46,11 +46,11 @@ def main() -> None:
 
     import numpy as np
 
-    from mediquery_rag_tpu.config import EmbedderConfig
-    from mediquery_rag_tpu.ingest import parse_corpus_file
-    from mediquery_rag_tpu.models.cross_encoder import (
+    from mediquery_rag.config import EmbedderConfig
+    from mediquery_rag.ingest import parse_corpus_file
+    from mediquery_rag.models.cross_encoder import (
         TrainedGrader, train_cross_encoder)
-    from mediquery_rag_tpu.models.eval import load_heldout
+    from mediquery_rag.models.eval import load_heldout
 
     cfg = EmbedderConfig(vocab_size=2048, hidden=args.hidden,
                          layers=args.layers, heads=4,
@@ -74,7 +74,7 @@ def main() -> None:
     # negatives: the gold chunk id + 80 (mod n) — a topically distant chunk
     # (the corpus is grouped by topic), deterministic and disjoint from gold
     ids_sorted = [c.chunk_id for c in chunks]
-    from mediquery_rag_tpu.models.cross_encoder import score_pairs
+    from mediquery_rag.models.cross_encoder import score_pairs
     queries = [q for _, q in heldout]
     golds = [by_id[cid].content for cid, _ in heldout]
     negs = [by_id[ids_sorted[(ids_sorted.index(cid) + len(chunks) // 2)
@@ -101,8 +101,8 @@ def main() -> None:
     if args.embedder:
         # the CLI-default bi-encoder grade (SimilarityGrader): max cosine of
         # doc vs query through a trained embedder, threshold 0.3
-        from mediquery_rag_tpu.models import TextEmbedder
-        from mediquery_rag_tpu.models.cross_encoder import SimilarityGrader
+        from mediquery_rag.models import TextEmbedder
+        from mediquery_rag.models.cross_encoder import SimilarityGrader
         te = TextEmbedder.from_checkpoint(args.embedder)
         sg = SimilarityGrader(te.embed)
 
@@ -123,7 +123,7 @@ def main() -> None:
 
         # the SHIPPING config: hybrid lexical+trained embedder at thr=0.2
         # (cli/context.py wires exactly this when a checkpoint exists)
-        from mediquery_rag_tpu.models import HybridEmbedder
+        from mediquery_rag.models import HybridEmbedder
         hy = HybridEmbedder.from_checkpoint(args.embedder)
 
         def hsims(ds):

@@ -27,12 +27,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from mediquery_rag_tpu.config import EngineConfig
-    from mediquery_rag_tpu.engine import FlatIndex, IVFIndex
-    from mediquery_rag_tpu.obs.metrics import device_time, recall_at_k
-    from mediquery_rag_tpu.ops.scoring import flat_search
-    from mediquery_rag_tpu.ops.quant import int8_flat_search
-    from mediquery_rag_tpu.ops.ivf_kernel import ivf_probe_search
+    from mediquery_rag.config import EngineConfig
+    from mediquery_rag.engine import FlatIndex, IVFIndex
+    from mediquery_rag.obs.metrics import device_time, recall_at_k
+    from mediquery_rag.ops.scoring import flat_search
+    from mediquery_rag.ops.quant import int8_flat_search
+    from mediquery_rag.ops.ivf_kernel import ivf_probe_search
 
     rng = np.random.default_rng(0)
     centers = rng.standard_normal((1024, d)).astype(np.float32)
@@ -47,7 +47,7 @@ def main():
     qs = qs / jnp.linalg.norm(qs, axis=1, keepdims=True)
     qs1 = qs[:, None, :]                                  # [iters, 1, d]
 
-    from mediquery_rag_tpu.ops import flat_search_xla
+    from mediquery_rag.ops import flat_search_xla
     _, i_ref = flat_search_xla(qs, xj, k)
     i_ref = np.asarray(i_ref)
 

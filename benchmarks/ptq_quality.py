@@ -52,12 +52,12 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from mediquery_rag_tpu.ingest import parse_corpus_file
-    from mediquery_rag_tpu.llm.messages import ai, user
-    from mediquery_rag_tpu.llm.tpu_client import render_chat
-    from mediquery_rag_tpu.models.eval import load_heldout
-    from mediquery_rag_tpu.models.generate import Generator
-    from mediquery_rag_tpu.models.train_lm import LMLoader, lm_loss
+    from mediquery_rag.ingest import parse_corpus_file
+    from mediquery_rag.llm.messages import ai, user
+    from mediquery_rag.llm.device_client import render_chat
+    from mediquery_rag.models.eval import load_heldout
+    from mediquery_rag.models.generate import Generator
+    from mediquery_rag.models.train_lm import LMLoader, lm_loss
 
     base = Generator.from_checkpoint(args.ckpt).to_serving_dtype()
     chunks = parse_corpus_file(args.corpus)
@@ -115,7 +115,7 @@ def main() -> None:
     ppl_train_ref = ppl(base, train_texts)
     ppl_unseen_ref = ppl(base, unseen_texts)
 
-    from mediquery_rag_tpu.models.speculative import SpeculativeGenerator
+    from mediquery_rag.models.speculative import SpeculativeGenerator
 
     for label, bits in (("bf16", 0), ("int8", 8), ("int4", 4)):
         # quantize_weights mutates its Generator (leaf-by-leaf, returns

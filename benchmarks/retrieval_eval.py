@@ -8,7 +8,7 @@ paraphrases that appear nowhere in the corpus:
 - **IDF lexical** (models/lexical.py): corpus-fitted IDF char 1/2-gram
   hashing, field-weighted docs, lexicon query expansion — the zero-config
   shipping default (cli/context.py).
-- **trained encoder**: the from-scratch TPU encoder trained with the
+- **trained encoder**: the from-scratch device encoder trained with the
   corpus-scale self-supervised recipe (ssl_examples_from_chunks:
   title/colloquialized-title/tags/span views; lexical-mined hard
   negatives; SimCSE dropout towers).
@@ -57,17 +57,17 @@ def main() -> None:
 
     import jax
 
-    from mediquery_rag_tpu.config import EmbedderConfig, TrainConfig
-    from mediquery_rag_tpu.ingest import parse_corpus_file
-    from mediquery_rag_tpu.models import (
+    from mediquery_rag.config import EmbedderConfig, TrainConfig
+    from mediquery_rag.ingest import parse_corpus_file
+    from mediquery_rag.models import (
         HashingEmbedder, HybridEmbedder, IDFHashingEmbedder,
         HashCharTokenizer, TextEmbedder,
     )
-    from mediquery_rag_tpu.models.data import (
+    from mediquery_rag.models.data import (
         TripletLoader, mine_hard_negatives, ssl_examples_from_chunks,
     )
-    from mediquery_rag_tpu.models.eval import load_heldout, retrieval_recall
-    from mediquery_rag_tpu.models.trainer import ContrastiveTrainer
+    from mediquery_rag.models.eval import load_heldout, retrieval_recall
+    from mediquery_rag.models.trainer import ContrastiveTrainer
 
     chunks = parse_corpus_file(args.corpus)
     heldout = load_heldout(args.heldout)

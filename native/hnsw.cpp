@@ -10,7 +10,7 @@
 // C ABI + ctypes (benchmarks/parity.py).
 //
 // Metric: inner product on L2-normalized vectors (cosine), matching the
-// TPU engine. dist = -dot so smaller is better.
+// device engine. dist = -dot so smaller is better.
 //
 // Build: make -C native   (g++ -O3 -shared -fPIC)
 

@@ -1,7 +1,7 @@
 // Native batch tokenizer: the host-side data-loader hot path.
 //
 // Ingest at scale is bounded by host tokenization (the pure-Python
-// per-character loop measures ~1.4 Mchar/s; the TPU embedder consumes far
+// per-character loop measures ~1.4 Mchar/s; the device embedder consumes far
 // faster). This implements models/tokenizer.py:HashCharTokenizer.encode
 // byte-for-byte: slice the first (max_len-1) CODEPOINTS, skip
 // Python-`str.isspace()` characters, splitmix-scramble each codepoint into

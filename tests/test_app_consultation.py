@@ -5,14 +5,14 @@ import os
 
 import pytest
 
-from mediquery_rag_tpu.app.consultation import Stage, StructuredConsultation
-from mediquery_rag_tpu.app.risk import (
+from mediquery_rag.app.consultation import Stage, StructuredConsultation
+from mediquery_rag.app.risk import (
     CRITICAL, HIGH, LOW, MEDIUM,
     assess_answer_risk, final_assessment, keyword_emergency,
 )
-from mediquery_rag_tpu.app.tools import calculate_bmi, parse_body_params, run_assessment
-from mediquery_rag_tpu.config import ConsultationConfig
-from mediquery_rag_tpu.llm import FakeLLM, RuleLLM
+from mediquery_rag.app.tools import calculate_bmi, parse_body_params, run_assessment
+from mediquery_rag.config import ConsultationConfig
+from mediquery_rag.llm import FakeLLM, RuleLLM
 
 
 class TestTools:
@@ -222,7 +222,7 @@ class TestReviewRegressions:
     def test_severity_parse_failure_keeps_critical(self):
         """A malformed optional severity must not downgrade a valid
         CRITICAL verdict to LOW (clinical fail-open direction)."""
-        from mediquery_rag_tpu.app.risk import CRITICAL, assess_answer_risk
+        from mediquery_rag.app.risk import CRITICAL, assess_answer_risk
         llm = FakeLLM(['{"risk": "CRITICAL", "severity": null, '
                        '"reason": "急性症状"}'])
         r = assess_answer_risk("症状", "持续剧烈胸痛并放射到左臂", llm)
@@ -232,7 +232,7 @@ class TestReviewRegressions:
     def test_partial_history_not_complete(self):
         """chronic answered but allergy/medication never asked => the
         profile must NOT be complete (or-chain once skipped them forever)."""
-        from mediquery_rag_tpu.app.consultation import UserProfile
+        from mediquery_rag.app.consultation import UserProfile
         p = UserProfile(user_id="u", name="张三", age=40, gender="男",
                         height_cm=175.0, weight_kg=70.0, chronic="高血压")
         assert not p.is_complete()
@@ -241,7 +241,7 @@ class TestReviewRegressions:
         assert p.is_complete()
 
     def test_number_validation_rejects_inf_nan(self, tmp_path):
-        from mediquery_rag_tpu.app.consultation import StructuredConsultation
+        from mediquery_rag.app.consultation import StructuredConsultation
         sc = StructuredConsultation(FakeLLM(), data_dir=str(tmp_path))
         sc.identify_user("13800000000")
         sc.start_session()
@@ -314,7 +314,7 @@ class TestReviewRegressions:
         assert sc2.profile.family_history == ["无"]
 
     def test_corrupt_session_file_skipped(self, tmp_path):
-        from mediquery_rag_tpu.app.consultation import StructuredConsultation
+        from mediquery_rag.app.consultation import StructuredConsultation
         sc = StructuredConsultation(FakeLLM(), data_dir=str(tmp_path))
         p = sc.identify_user("13811112222")
         sc.start_session()

@@ -2,7 +2,7 @@
 
 import os
 
-from mediquery_rag_tpu.app.memory import (
+from mediquery_rag.app.memory import (
     HITLManager,
     ProfileStore,
     UserProfileMarkdown,
@@ -11,8 +11,8 @@ from mediquery_rag_tpu.app.memory import (
     should_summarize,
     summarize_messages,
 )
-from mediquery_rag_tpu.config import MemoryConfig
-from mediquery_rag_tpu.llm import FakeLLM, ai, user
+from mediquery_rag.config import MemoryConfig
+from mediquery_rag.llm import FakeLLM, ai, user
 
 
 class TestProfileStore:
@@ -159,7 +159,7 @@ class TestExtractionThroughHITL:
         """Allergy extractions must wait for human review when a HITL
         manager is wired (LLM hallucinations of safety-critical facts
         previously flowed straight into every future prompt)."""
-        from mediquery_rag_tpu.app.memory.hitl import HITLManager
+        from mediquery_rag.app.memory.hitl import HITLManager
         store = ProfileStore(":memory:")
         hitl = HITLManager(str(tmp_path / "review"), store)
         llm = FakeLLM(['[{"category": "allergy", "content": "青霉素过敏", '
@@ -170,7 +170,7 @@ class TestExtractionThroughHITL:
         assert hitl.stats()["pending"] == 1
 
     def test_low_risk_extraction_auto_applied(self, tmp_path):
-        from mediquery_rag_tpu.app.memory.hitl import HITLManager
+        from mediquery_rag.app.memory.hitl import HITLManager
         store = ProfileStore(":memory:")
         hitl = HITLManager(str(tmp_path / "review"), store)
         llm = FakeLLM(['[{"category": "lifestyle", "content": "每周跑步三次", '

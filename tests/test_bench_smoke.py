@@ -1,10 +1,8 @@
 """Smoke test of bench.py's OWN wiring (the driver-captured headline artifact).
 
-Round-3 postmortem: the sweep retuned TC8 to 4096 while bench.py still
-padded the int8 corpus to a multiple of TC=2048 — the kernels were all
-covered by tests, but bench.py's pad/tile arithmetic was not, so the one
-artifact the driver records crashed on the real chip (BENCH_r03.json rc=1).
-This test executes the exact prep+search functions main() uses, at tiny N
+A retune of one dtype's tile that leaves another dtype's pad behind would
+crash the headline artifact while every op test stays green. This test
+executes the exact prep+search functions main() uses, at tiny N
 with deliberately DIFFERENT per-dtype tiles none of which divide N, so any
 future retune that desynchronizes a pad from its tile fails here first.
 """
@@ -30,7 +28,7 @@ class TestBenchWiring:
         assert c4p.shape[0] == n_pad4 // 2 and n_pad4 % tc4 == 0
         assert qs.shape == (iters, b, d)
 
-        r = bench.run_searches(data, n=n, k=10, qt=b, tc=tc, tc8=tc8,
+        r = bench.run_searches(data, n=n, k=10, tc=tc, tc8=tc8,
                                tc4=tc4, rerank=4)
         # unit-norm gaussians at n=1000: every quantized path should agree
         # closely with the f32 oracle
@@ -52,7 +50,7 @@ class TestBenchWiring:
 
     def test_host_rerank_stage_shapes(self):
         """The host-rerank stage main() times, at tiny shapes."""
-        from mediquery_rag_tpu.engine.flat import host_rerank
+        from mediquery_rag.engine.flat import host_rerank
         n, d, b, k, rerank = 200, 64, 4, 5, 4
         refine = np.random.default_rng(0).standard_normal((n, d)).astype(
             np.float16)

@@ -5,17 +5,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mediquery_rag_tpu.config import EmbedderConfig, EngineConfig, TrainConfig
-from mediquery_rag_tpu.engine import ShardedFlatIndex
-from mediquery_rag_tpu.engine.checkpoint import (
+from mediquery_rag.config import EmbedderConfig, EngineConfig, TrainConfig
+from mediquery_rag.engine import ShardedFlatIndex
+from mediquery_rag.engine.checkpoint import (
     load_sharded_index,
     load_train_state,
     save_sharded_index,
     save_train_state,
 )
-from mediquery_rag_tpu.models import HashCharTokenizer
-from mediquery_rag_tpu.models.trainer import Batch, ContrastiveTrainer
-from mediquery_rag_tpu.parallel import corpus_mesh
+from mediquery_rag.models import HashCharTokenizer
+from mediquery_rag.models.trainer import Batch, ContrastiveTrainer
+from mediquery_rag.parallel import corpus_mesh
 
 TINY = EmbedderConfig(vocab_size=512, hidden=64, layers=2, heads=4,
                       mlp_dim=128, max_len=128, dtype="float32")
@@ -30,7 +30,7 @@ class TestShardedIndexCheckpoint:
     def test_roundtrip_preserves_search(self, tmp_path):
         mesh = corpus_mesh(8)
         cfg = EngineConfig(dim=64, dtype="float32", corpus_tile=256,
-                           query_tile=32)
+                           )
         c = _vecs(3000, 64)
         idx = ShardedFlatIndex.build(c, mesh, cfg)
         save_sharded_index(idx, str(tmp_path / "ck"))
@@ -45,7 +45,7 @@ class TestShardedIndexCheckpoint:
 
     def test_int8_roundtrip(self, tmp_path):
         mesh = corpus_mesh(8)
-        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256, query_tile=32)
+        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256)
         idx = ShardedFlatIndex.build(_vecs(2000, 64, seed=2), mesh, cfg)
         save_sharded_index(idx, str(tmp_path / "ck8"))
         idx2 = load_sharded_index(str(tmp_path / "ck8"), mesh)
@@ -58,7 +58,7 @@ class TestShardedIndexCheckpoint:
     def test_second_roundtrip(self, tmp_path):
         mesh = corpus_mesh(8)
         cfg = EngineConfig(dim=64, dtype="float32", corpus_tile=256,
-                           query_tile=32)
+                           )
         idx = ShardedFlatIndex.build(_vecs(1000, 64, seed=4), mesh, cfg)
         save_sharded_index(idx, str(tmp_path / "cka"))
         idx2 = load_sharded_index(str(tmp_path / "cka"), mesh)
@@ -91,11 +91,11 @@ class TestShardedIVFCheckpoint:
         import jax
         import jax.numpy as jnp
         import numpy as np
-        from mediquery_rag_tpu.config import EngineConfig
-        from mediquery_rag_tpu.engine.checkpoint import (
+        from mediquery_rag.config import EngineConfig
+        from mediquery_rag.engine.checkpoint import (
             load_sharded_ivf, save_sharded_ivf)
-        from mediquery_rag_tpu.engine.sharded_ivf import ShardedIVFIndex
-        from mediquery_rag_tpu.parallel import corpus_mesh
+        from mediquery_rag.engine.sharded_ivf import ShardedIVFIndex
+        from mediquery_rag.parallel import corpus_mesh
 
         mesh = corpus_mesh(8)
         c = jax.random.normal(jax.random.PRNGKey(170), (2000, 64))
@@ -118,7 +118,7 @@ class TestInt4Checkpoints:
     def test_sharded_flat_int4_roundtrip(self, tmp_path):
         mesh = corpus_mesh(8)
         cfg = EngineConfig(dim=64, dtype="int4", corpus_tile=256,
-                           query_tile=32)
+                           )
         idx = ShardedFlatIndex.build(_vecs(2000, 64, seed=4), mesh, cfg)
         assert idx.corpus_scale.shape[0] == 2     # (even, odd) scale planes
         save_sharded_index(idx, str(tmp_path / "ck4"))
@@ -134,9 +134,9 @@ class TestInt4Checkpoints:
     def test_sharded_ivf_int4_roundtrip(self, tmp_path):
         import jax
         import jax.numpy as jnp
-        from mediquery_rag_tpu.engine.checkpoint import (
+        from mediquery_rag.engine.checkpoint import (
             load_sharded_ivf, save_sharded_ivf)
-        from mediquery_rag_tpu.engine.sharded_ivf import ShardedIVFIndex
+        from mediquery_rag.engine.sharded_ivf import ShardedIVFIndex
 
         mesh = corpus_mesh(8)
         c = jax.random.normal(jax.random.PRNGKey(180), (2000, 64))

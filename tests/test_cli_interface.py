@@ -11,8 +11,8 @@ import shutil
 
 import pytest
 
-from mediquery_rag_tpu.cli.context import AppContext
-from mediquery_rag_tpu.cli import interface
+from mediquery_rag.cli.context import AppContext
+from mediquery_rag.cli import interface
 
 
 @pytest.fixture(scope="module")
@@ -42,7 +42,7 @@ class TestMainMenu:
         _drive(monkeypatch, ["q"])
         interface.main_menu(ctx)
         out = capsys.readouterr().out
-        assert "MediQuery-TPU" in out and "再见" in out
+        assert "MediQuery" in out and "再见" in out
 
     def test_eof_quits(self, ctx, monkeypatch, capsys):
         _drive(monkeypatch, [])

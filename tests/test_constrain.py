@@ -15,11 +15,11 @@ import json
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.config import DecoderConfig
-from mediquery_rag_tpu.models.byte_tokenizer import ByteTokenizer
-from mediquery_rag_tpu.models.constrain import (
+from mediquery_rag.config import DecoderConfig
+from mediquery_rag.models.byte_tokenizer import ByteTokenizer
+from mediquery_rag.models.constrain import (
     EXTRACT_SCHEMA, FOLLOWUP_SCHEMA, RISK_SCHEMA, JsonConstraint)
-from mediquery_rag_tpu.models.generate import Generator
+from mediquery_rag.models.generate import Generator
 
 TINY = DecoderConfig(vocab_size=384, hidden=64, layers=2, heads=4,
                      mlp_dim=128, max_len=2048, dtype="float32")
@@ -155,25 +155,25 @@ class TestConstrainedGeneration:
 
 class TestAppSeams:
     """The reference's failure mode — unparseable LLM JSON → fail-open
-    fallback — cannot happen through a TPU client: even a RANDOM-weight
+    fallback — cannot happen through a on-device client: even a RANDOM-weight
     model yields schema-valid triage/extraction through the real app code."""
 
     @pytest.fixture(scope="class")
     def llm(self):
-        from mediquery_rag_tpu.llm.tpu_client import TPULLMClient
-        return TPULLMClient(Generator(TINY), temperature=0.9)
+        from mediquery_rag.llm.device_client import DeviceLLMClient
+        return DeviceLLMClient(Generator(TINY), temperature=0.9)
 
     def test_triage_never_falls_back(self, llm):
-        from mediquery_rag_tpu.app.risk import assess_answer_risk
+        from mediquery_rag.app.risk import assess_answer_risk
         r = assess_answer_risk("疼痛程度如何？", "大概5分吧", llm)
         assert r.source == "llm"     # parsed, not the fail-open fallback
         assert r.level in {"CRITICAL", "HIGH", "MEDIUM", "LOW"}
         assert 0 <= r.severity <= 10
 
     def test_extractor_output_parses(self, llm):
-        from mediquery_rag_tpu.app.memory.health_extractor import (
+        from mediquery_rag.app.memory.health_extractor import (
             extract_health_info)
-        from mediquery_rag_tpu.app.memory.profile_store import ProfileStore
+        from mediquery_rag.app.memory.profile_store import ProfileStore
         store = ProfileStore()
         # random weights may emit 0..8 records; the invariant is that
         # the pipeline runs without the fail-open early return firing
@@ -182,8 +182,8 @@ class TestAppSeams:
         assert n >= 0
 
     def test_schema_kwarg_ignored_by_fakes(self):
-        from mediquery_rag_tpu.llm.client import FakeLLM
-        from mediquery_rag_tpu.models.constrain import RISK_SCHEMA
+        from mediquery_rag.llm.client import FakeLLM
+        from mediquery_rag.models.constrain import RISK_SCHEMA
         fake = FakeLLM(['{"risk":"LOW","severity":1,"reason":"x"}'])
         out = fake.complete("q", schema=RISK_SCHEMA)
         assert json.loads(out)["risk"] == "LOW"
@@ -197,7 +197,7 @@ class TestTokenizerProjection:
     def test_bpe_tokenizer_ids(self, tmp_path):
         pytest.importorskip("tokenizers")
         from tests.test_hf_import import _write_tiny_tokenizer
-        from mediquery_rag_tpu.models.bpe_tokenizer import BPETokenizer
+        from mediquery_rag.models.bpe_tokenizer import BPETokenizer
         _write_tiny_tokenizer(str(tmp_path))
         tok = BPETokenizer.from_pretrained(str(tmp_path), max_len=512)
         ids = tok.byte_token_ids()
@@ -210,7 +210,7 @@ class TestTokenizerProjection:
     def test_token_byte_table_matches_vocab(self, tmp_path):
         pytest.importorskip("tokenizers")
         from tests.test_hf_import import _write_tiny_tokenizer
-        from mediquery_rag_tpu.models.bpe_tokenizer import BPETokenizer
+        from mediquery_rag.models.bpe_tokenizer import BPETokenizer
         _write_tiny_tokenizer(str(tmp_path))
         tok = BPETokenizer.from_pretrained(str(tmp_path), max_len=512)
         tb, tl = tok.token_byte_table()
@@ -235,7 +235,7 @@ class TestTokenLevelBPE:
     def gen(self, tmp_path_factory):
         pytest.importorskip("tokenizers")
         from tests.test_hf_import import _write_tiny_tokenizer
-        from mediquery_rag_tpu.models.bpe_tokenizer import BPETokenizer
+        from mediquery_rag.models.bpe_tokenizer import BPETokenizer
         d = str(tmp_path_factory.mktemp("bpe"))
         _write_tiny_tokenizer(d)
         tok = BPETokenizer.from_pretrained(d, max_len=512)

@@ -1,7 +1,7 @@
 """Engine-level tests: flat / sharded / IVF indexes vs brute-force oracle.
 
 SURVEY §4 classes (3) recall parity vs brute force and (4) multi-chip on the
-8-device virtual CPU mesh (same shard_map code as real v5e-8).
+8-device virtual CPU mesh (same shard_map code as a real multi-GPU host).
 """
 
 import jax
@@ -9,11 +9,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.config import EngineConfig
-from mediquery_rag_tpu.engine import FlatIndex, IVFIndex, ShardedFlatIndex
-from mediquery_rag_tpu.obs import recall_at_k
-from mediquery_rag_tpu.ops import flat_search_xla
-from mediquery_rag_tpu.parallel import corpus_mesh
+from mediquery_rag.config import EngineConfig
+from mediquery_rag.engine import FlatIndex, IVFIndex, ShardedFlatIndex
+from mediquery_rag.obs import recall_at_k
+from mediquery_rag.ops import flat_search_xla
+from mediquery_rag.parallel import corpus_mesh
 
 
 def _vecs(n, d, seed=0):
@@ -21,7 +21,7 @@ def _vecs(n, d, seed=0):
     return x / jnp.linalg.norm(x, axis=-1, keepdims=True)
 
 
-CFG = EngineConfig(dim=64, dtype="float32", corpus_tile=256, query_tile=32)
+CFG = EngineConfig(dim=64, dtype="float32", corpus_tile=256)
 
 
 class TestFlatIndex:
@@ -110,7 +110,7 @@ class TestShardedFlatIndex:
 
     def test_int8_sharded_matches(self):
         mesh = corpus_mesh(8)
-        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256, query_tile=32)
+        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256)
         c = _vecs(4000, 64, seed=20)
         idx = ShardedFlatIndex.build(c, mesh, cfg)
         assert idx.corpus_scale is not None
@@ -139,12 +139,12 @@ class TestHierarchicalDCNMesh:
     IDENTICAL to the flat single-axis merge and the oracle."""
 
     def _mesh(self):
-        from mediquery_rag_tpu.parallel import slice_mesh
+        from mediquery_rag.parallel import slice_mesh
         return slice_mesh(2, 4)
 
     def test_flat_f32_matches_oracle(self):
         cfg = EngineConfig(dim=64, dtype="float32", corpus_tile=256,
-                           query_tile=32, dcn_axis="dcn")
+                           dcn_axis="dcn")
         c = _vecs(5000, 64)
         q = _vecs(9, 64, seed=6)
         idx = ShardedFlatIndex.build(c, self._mesh(), cfg)
@@ -158,7 +158,7 @@ class TestHierarchicalDCNMesh:
         """n not divisible by 8 shards: trailing shards partially padded —
         offsets/valid counts must use the row-major (dcn, ici) linear id."""
         cfg = EngineConfig(dim=64, dtype="float32", corpus_tile=256,
-                           query_tile=32, dcn_axis="dcn")
+                           dcn_axis="dcn")
         c = _vecs(1000, 64, seed=7)
         idx = ShardedFlatIndex.build(c, self._mesh(), cfg)
         q = _vecs(3, 64, seed=8)
@@ -171,9 +171,9 @@ class TestHierarchicalDCNMesh:
         c = _vecs(4000, 64, seed=20)
         q = _vecs(5, 64, seed=21)
         cfg1 = EngineConfig(dim=64, dtype="int8", corpus_tile=256,
-                            query_tile=32)
+                            )
         cfg2 = EngineConfig(dim=64, dtype="int8", corpus_tile=256,
-                            query_tile=32, dcn_axis="dcn")
+                            dcn_axis="dcn")
         i1 = ShardedFlatIndex.build(c, corpus_mesh(8), cfg1).search(q, k=10)[1]
         i2 = ShardedFlatIndex.build(c, self._mesh(), cfg2).search(q, k=10)[1]
         np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
@@ -182,15 +182,15 @@ class TestHierarchicalDCNMesh:
         c = _vecs(4096, 64, seed=22)
         q = _vecs(5, 64, seed=23)
         cfg1 = EngineConfig(dim=64, dtype="int4", corpus_tile=256,
-                            query_tile=32)
+                            )
         cfg2 = EngineConfig(dim=64, dtype="int4", corpus_tile=256,
-                            query_tile=32, dcn_axis="dcn")
+                            dcn_axis="dcn")
         i1 = ShardedFlatIndex.build(c, corpus_mesh(8), cfg1).search(q, k=10)[1]
         i2 = ShardedFlatIndex.build(c, self._mesh(), cfg2).search(q, k=10)[1]
         np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
 
     def test_ivf_matches_single_axis_merge(self):
-        from mediquery_rag_tpu.engine import ShardedIVFIndex
+        from mediquery_rag.engine import ShardedIVFIndex
         c = _vecs(2000, 64, seed=24)
         q = _vecs(6, 64, seed=25)
         cfg1 = EngineConfig(dim=64, dtype="int8", ivf_nlist=16,
@@ -199,17 +199,16 @@ class TestHierarchicalDCNMesh:
                             ivf_kmeans_iters=2, dcn_axis="dcn")
         ivf1 = ShardedIVFIndex.build(c, corpus_mesh(8), cfg1)
         ivf2 = ShardedIVFIndex.build(c, self._mesh(), cfg2)
-        for batched in (False, True):
-            _, j1 = ivf1.search(q, k=5, nprobe=4, batched=batched)
-            _, j2 = ivf2.search(q, k=5, nprobe=4, batched=batched)
-            np.testing.assert_array_equal(np.asarray(j1), np.asarray(j2))
+        _, j1 = ivf1.search(q, k=5, nprobe=4)
+        _, j2 = ivf2.search(q, k=5, nprobe=4)
+        np.testing.assert_array_equal(np.asarray(j1), np.asarray(j2))
 
     def test_checkpoint_roundtrip_hierarchical(self, tmp_path):
-        from mediquery_rag_tpu.engine.checkpoint import (
+        from mediquery_rag.engine.checkpoint import (
             load_sharded_index, save_sharded_index,
         )
         cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256,
-                           query_tile=32, dcn_axis="dcn")
+                           dcn_axis="dcn")
         mesh = self._mesh()
         c = _vecs(2000, 64, seed=26)
         idx = ShardedFlatIndex.build(c, mesh, cfg)
@@ -223,7 +222,7 @@ class TestHierarchicalDCNMesh:
 
     def test_bad_dcn_axis_rejected(self):
         cfg = EngineConfig(dim=64, dtype="float32", corpus_tile=256,
-                           query_tile=32, dcn_axis="nope")
+                           dcn_axis="nope")
         with pytest.raises(ValueError, match="not an axis"):
             ShardedFlatIndex.build(_vecs(512, 64), self._mesh(), cfg)
 
@@ -262,7 +261,7 @@ class TestIVFIndex:
         bounded-cap layout evicted whole dense regions to far buckets
         (measured 28% alt-placement at 10M, recall plateau 0.94);
         split_oversized makes capacity where the density is."""
-        from mediquery_rag_tpu.ops.kmeans import (
+        from mediquery_rag.ops.kmeans import (
             assign_clusters, kmeans, split_oversized)
         rng = np.random.default_rng(0)
         centers = rng.standard_normal((40, 64)).astype(np.float32)
@@ -336,7 +335,7 @@ class TestIVFIndex:
 
 class TestShardedIVF:
     def test_matches_single_chip_ivf(self):
-        from mediquery_rag_tpu.engine.sharded_ivf import ShardedIVFIndex
+        from mediquery_rag.engine.sharded_ivf import ShardedIVFIndex
         mesh = corpus_mesh(8)
         key = jax.random.PRNGKey(40)
         centers = jax.random.normal(key, (32, 64))
@@ -355,7 +354,7 @@ class TestShardedIVF:
                                       np.sort(np.asarray(i2), axis=1))
 
     def test_full_probe_exact(self):
-        from mediquery_rag_tpu.engine.sharded_ivf import ShardedIVFIndex
+        from mediquery_rag.engine.sharded_ivf import ShardedIVFIndex
         mesh = corpus_mesh(8)
         c = _vecs(2000, 64, seed=44)
         cfg = EngineConfig(dim=64, dtype="float32", ivf_nlist=16,
@@ -367,24 +366,10 @@ class TestShardedIVF:
         np.testing.assert_array_equal(np.sort(np.asarray(i), axis=1),
                                       np.sort(np.asarray(i_ref), axis=1))
 
-    def test_batched_matches_query_major(self):
-        from mediquery_rag_tpu.engine.sharded_ivf import ShardedIVFIndex
-        mesh = corpus_mesh(8)
-        c = _vecs(2000, 64, seed=46)
-        cfg = EngineConfig(dim=64, dtype="float32", ivf_nlist=32,
-                           ivf_kmeans_iters=4)
-        idx = ShardedIVFIndex.build(c, mesh, cfg)
-        q = _vecs(7, 64, seed=47)
-        s1, i1 = idx.search(q, k=5, nprobe=6, batched=True)
-        s2, i2 = idx.search(q, k=5, nprobe=6, batched=False)
-        np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-        np.testing.assert_allclose(np.asarray(s1), np.asarray(s2),
-                                   rtol=1e-5, atol=1e-5)
-
     def test_int8_matches_single_chip_int8(self):
         """int8 sharded IVF must carry the per-row scales (not score raw
         int8 dots) — results must equal the single-chip int8 index."""
-        from mediquery_rag_tpu.engine.sharded_ivf import ShardedIVFIndex
+        from mediquery_rag.engine.sharded_ivf import ShardedIVFIndex
         mesh = corpus_mesh(8)
         c = _vecs(2000, 64, seed=48)
         cfg = EngineConfig(dim=64, dtype="int8", ivf_nlist=16,
@@ -393,20 +378,19 @@ class TestShardedIVF:
         idx = ShardedIVFIndex.build(c, mesh, cfg, key=jax.random.PRNGKey(0))
         assert idx.bucket_scales is not None
         q = _vecs(6, 64, seed=49)
-        for batched in (False, True):
-            s1, i1 = base.search(q, k=5, nprobe=8, batched=batched)
-            s2, i2 = idx.search(q, k=5, nprobe=8, batched=batched)
-            np.testing.assert_array_equal(
-                np.sort(np.asarray(i1), axis=1),
-                np.sort(np.asarray(i2), axis=1))
-            np.testing.assert_allclose(
-                np.sort(np.asarray(s1), axis=1),
-                np.sort(np.asarray(s2), axis=1), rtol=1e-4, atol=1e-4)
+        s1, i1 = base.search(q, k=5, nprobe=8)
+        s2, i2 = idx.search(q, k=5, nprobe=8)
+        np.testing.assert_array_equal(
+            np.sort(np.asarray(i1), axis=1),
+            np.sort(np.asarray(i2), axis=1))
+        np.testing.assert_allclose(
+            np.sort(np.asarray(s1), axis=1),
+            np.sort(np.asarray(s2), axis=1), rtol=1e-4, atol=1e-4)
 
 
 class TestTuning:
     def test_tune_nprobe_finds_cheapest(self):
-        from mediquery_rag_tpu.engine.tuning import tune_nprobe
+        from mediquery_rag.engine.tuning import tune_nprobe
         key = jax.random.PRNGKey(50)
         centers = jax.random.normal(key, (32, 64))
         asg = jax.random.randint(jax.random.PRNGKey(51), (3000,), 0, 32)
@@ -426,7 +410,7 @@ class TestTuning:
 
 class TestIVFKernelVsOracle:
     def test_probe_kernel_matches_gather_oracle(self):
-        from mediquery_rag_tpu.ops.ivf_kernel import (
+        from mediquery_rag.ops.ivf_probe import (
             ivf_probe_search, ivf_probe_search_xla)
         cfg = EngineConfig(dim=64, dtype="float32", ivf_nlist=16,
                            ivf_kmeans_iters=3)
@@ -443,10 +427,10 @@ class TestIVFKernelVsOracle:
         np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), rtol=1e-5)
 
     def test_batch_kernel_matches_gather_oracle(self):
-        """Bucket-major layout: deduped probes must not change results even
-        when many queries probe the same buckets."""
-        from mediquery_rag_tpu.ops.ivf_kernel import (
-            ivf_batch_search, ivf_probe_search_xla)
+        """Many queries probing the same buckets, at batch sizes that do
+        and do not divide the probe op's query groups."""
+        from mediquery_rag.ops.ivf_probe import (
+            ivf_probe_search, ivf_probe_search_xla)
         cfg = EngineConfig(dim=64, dtype="float32", ivf_nlist=16,
                            ivf_kmeans_iters=3)
         # clustered corpus => heavy probe overlap across queries
@@ -463,24 +447,12 @@ class TestIVFKernelVsOracle:
             _, pid = jax.lax.top_k(cs, nprobe)
             pid = pid.astype(jnp.int32)
             qs = q.astype(iv.buckets.dtype)
-            s1, i1 = ivf_batch_search(pid, qs, iv.buckets, iv.bucket_ids, k=5)
+            s1, i1 = ivf_probe_search(pid, qs, iv.buckets, iv.bucket_ids, k=5)
             s2, i2 = ivf_probe_search_xla(pid, qs, iv.buckets, iv.bucket_ids,
                                           k=5)
             np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
             np.testing.assert_allclose(np.asarray(s1), np.asarray(s2),
                                        rtol=1e-5)
-
-    def test_batch_kernel_int8_matches_query_major(self):
-        cfg = EngineConfig(dim=64, dtype="int8", ivf_nlist=16,
-                           ivf_kmeans_iters=3)
-        c = _vecs(1200, 64, seed=80)
-        iv = IVFIndex.build(c, cfg)
-        q = _vecs(9, 64, seed=81)
-        s1, i1 = iv.search(q, k=5, nprobe=4, batched=True)
-        s2, i2 = iv.search(q, k=5, nprobe=4, batched=False)
-        np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-        np.testing.assert_allclose(np.asarray(s1), np.asarray(s2),
-                                   rtol=1e-5, atol=1e-5)
 
 
 class TestFlatMutation:
@@ -521,7 +493,7 @@ class TestFlatMutation:
         assert idx2.n == 201
 
     def test_int8_add_delete(self):
-        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256, query_tile=32)
+        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256)
         c = _vecs(400, 64, seed=94)
         idx = FlatIndex.build(c[:350], cfg).add(c[350:]).delete([10, 20, 30])
         q = c[360]
@@ -647,7 +619,7 @@ class TestBoundedCapIVF:
 
 class TestBucketLadder:
     def test_bucket_sizes(self):
-        from mediquery_rag_tpu.engine.flat import bucket_queries
+        from mediquery_rag.engine.flat import bucket_queries
         for b, want in ((1, 1), (2, 4), (4, 4), (5, 8), (8, 8), (9, 16),
                         (17, 32), (64, 64), (65, 80)):
             q = np.zeros((b, 8), np.float32)
@@ -672,11 +644,9 @@ class TestBucketLadder:
         c = _vecs(1500, 64, seed=130)
         iv = IVFIndex.build(c, cfg)
         _, i_ref = flat_search_xla(_vecs(7, 64, seed=131), c, 5)
-        for batched in (False, True):
-            _, i = iv.search(_vecs(7, 64, seed=131), k=5, nprobe=16,
-                             batched=batched)
-            np.testing.assert_array_equal(np.sort(np.asarray(i), 1),
-                                          np.sort(np.asarray(i_ref), 1))
+        _, i = iv.search(_vecs(7, 64, seed=131), k=5, nprobe=16)
+        np.testing.assert_array_equal(np.sort(np.asarray(i), 1),
+                                      np.sort(np.asarray(i_ref), 1))
 
 
 class TestStreamingIVFBuild:
@@ -795,7 +765,7 @@ class TestStreamingIVFBuild:
 
 class TestShardedFromStreaming:
     def test_streaming_index_shards_and_matches(self):
-        from mediquery_rag_tpu.engine.sharded_ivf import ShardedIVFIndex
+        from mediquery_rag.engine.sharded_ivf import ShardedIVFIndex
         mesh = corpus_mesh(8)
         c = np.asarray(_vecs(2000, 64, seed=160), np.float32)
         cfg = EngineConfig(dim=64, dtype="int8", ivf_nlist=16,
@@ -844,7 +814,7 @@ class TestReviewRegressions:
         """k=128 with rerank configured: no overfetch headroom, but the
         exact re-score must still run (reorders int8 candidates)."""
         cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256,
-                           query_tile=32, rerank_factor=4)
+                           rerank_factor=4)
         c = _vecs(500, 64, seed=173)
         idx = FlatIndex.build(c, cfg)
         s, i = idx.search(_vecs(2, 64, seed=174), k=128)

@@ -6,22 +6,22 @@ possible because every touchpoint is constructor-injected.
 
 import pytest
 
-from mediquery_rag_tpu.config import EngineConfig, GraphConfig
-from mediquery_rag_tpu.graph import (
+from mediquery_rag.config import EngineConfig, GraphConfig
+from mediquery_rag.graph import (
     END,
     SqliteCheckpointer,
     StateGraph,
     build_medical_graph,
     create_nodes,
 )
-from mediquery_rag_tpu.graph.engine import append_reducer
-from mediquery_rag_tpu.graph.state import detect_mode
-from mediquery_rag_tpu.ingest import build_document_store
-from mediquery_rag_tpu.llm import FakeLLM, RuleLLM, user
-from mediquery_rag_tpu.llm.client import extract_json
-from mediquery_rag_tpu.models import HashingEmbedder
+from mediquery_rag.graph.engine import append_reducer
+from mediquery_rag.graph.state import detect_mode
+from mediquery_rag.ingest import build_document_store
+from mediquery_rag.llm import FakeLLM, RuleLLM, user
+from mediquery_rag.llm.client import extract_json
+from mediquery_rag.models import HashingEmbedder
 
-CFG = EngineConfig(dim=256, dtype="float32", corpus_tile=256, query_tile=32)
+CFG = EngineConfig(dim=256, dtype="float32", corpus_tile=256)
 
 
 @pytest.fixture(scope="module")
@@ -210,13 +210,13 @@ class TestExtractJson:
 
 class TestWebClients:
     def test_fake_web_search_records(self):
-        from mediquery_rag_tpu.llm.web import FakeWebSearch
+        from mediquery_rag.llm.web import FakeWebSearch
         ws = FakeWebSearch([{"title": "t", "content": "c", "url": "u"}])
         assert ws("查询")[0]["title"] == "t"
         assert ws.queries == ["查询"]
 
     def test_tavily_without_key_is_safe(self, monkeypatch):
-        from mediquery_rag_tpu.llm.web import TavilyClient
+        from mediquery_rag.llm.web import TavilyClient
         monkeypatch.delenv("TAVILY_API_KEY", raising=False)
         t = TavilyClient()
         assert not t.available

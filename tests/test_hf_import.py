@@ -51,8 +51,8 @@ def _tiny_qwen(tmp_path, *, tie=False, vocab=160):
 class TestQwen2Import:
     @pytest.mark.parametrize("tie", [False, True])
     def test_logits_parity_full_forward(self, tmp_path, tie):
-        from mediquery_rag_tpu.models import Decoder
-        from mediquery_rag_tpu.models.hf_import import load_qwen2
+        from mediquery_rag.models import Decoder
+        from mediquery_rag.models.hf_import import load_qwen2
 
         hf_model, d = _tiny_qwen(tmp_path, tie=tie)
         cfg, params = load_qwen2(d, dtype="float32", param_dtype="float32")
@@ -80,8 +80,8 @@ class TestQwen2Import:
 
     def test_greedy_decode_parity(self, tmp_path):
         """prefill + KV-cache decode must reproduce HF's greedy continuation."""
-        from mediquery_rag_tpu.models import Decoder
-        from mediquery_rag_tpu.models.hf_import import load_qwen2
+        from mediquery_rag.models import Decoder
+        from mediquery_rag.models.hf_import import load_qwen2
 
         hf_model, d = _tiny_qwen(tmp_path)
         cfg, params = load_qwen2(d, dtype="float32", param_dtype="float32")
@@ -109,7 +109,7 @@ class TestQwen2Import:
     def test_generator_end_to_end(self, tmp_path):
         """load_qwen2_generator drives the full serving engine on an
         imported checkpoint (with a real BPE tokenizer alongside)."""
-        from mediquery_rag_tpu.models.hf_import import load_qwen2_generator
+        from mediquery_rag.models.hf_import import load_qwen2_generator
 
         hf_model, d = _tiny_qwen(tmp_path, vocab=300)
         _write_tiny_tokenizer(d, vocab_target=300)
@@ -119,12 +119,12 @@ class TestQwen2Import:
 
     def test_generator_int4_serving(self, tmp_path):
         """Imported checkpoints serve at the reference's Ollama tier
-        (4-bit weight-only) through TPULLMClient.from_hf(quantize=4)."""
-        from mediquery_rag_tpu.llm.tpu_client import TPULLMClient
+        (4-bit weight-only) through DeviceLLMClient.from_hf(quantize=4)."""
+        from mediquery_rag.llm.device_client import DeviceLLMClient
 
         _, d = _tiny_qwen(tmp_path, vocab=300)
         _write_tiny_tokenizer(d, vocab_target=300)
-        client = TPULLMClient.from_hf(d, quantize=4, max_new_tokens=4)
+        client = DeviceLLMClient.from_hf(d, quantize=4, max_new_tokens=4)
         assert "q4" in client.generator.params["lm_head"]
         out = client.complete("血压高")
         assert isinstance(out, str)
@@ -177,7 +177,7 @@ class TestBPETokenizer:
     @pytest.fixture()
     def pair(self, tmp_path):
         lib_tok = _write_tiny_tokenizer(str(tmp_path))
-        from mediquery_rag_tpu.models.bpe_tokenizer import BPETokenizer
+        from mediquery_rag.models.bpe_tokenizer import BPETokenizer
         ours = BPETokenizer.from_pretrained(str(tmp_path), max_len=512)
         return lib_tok, ours
 
@@ -228,8 +228,8 @@ def _tiny_bert(tmp_path, vocab=120):
 
 class TestBertImport:
     def test_hidden_states_and_pooling_parity(self, tmp_path):
-        from mediquery_rag_tpu.models import BertEncoder
-        from mediquery_rag_tpu.models.hf_import import load_bert
+        from mediquery_rag.models import BertEncoder
+        from mediquery_rag.models.hf_import import load_bert
 
         hf_model, d = _tiny_bert(tmp_path)
         cfg, params = load_bert(d, dtype="float32")
@@ -262,7 +262,7 @@ class TestBertImport:
     def test_wordpiece_matches_transformers(self, tmp_path):
         from transformers import BertTokenizerFast
 
-        from mediquery_rag_tpu.models import WordPieceTokenizer
+        from mediquery_rag.models import WordPieceTokenizer
 
         pieces = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]",
                   "高", "血", "压", "患", "者", "饮", "食", "的", "建", "议",
@@ -292,7 +292,7 @@ class TestBertImport:
             assert got == expect, f"mismatch on {text!r}"
 
     def test_bert_text_embedder_end_to_end(self, tmp_path):
-        from mediquery_rag_tpu.models import BertTextEmbedder
+        from mediquery_rag.models import BertTextEmbedder
 
         _, d = _tiny_bert(tmp_path)
         pieces = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "高", "血", "压",
@@ -317,8 +317,8 @@ class TestRealCheckpoint:
     @pytest.mark.skipif(not path or not os.path.isdir(path),
                         reason="set MEDIQUERY_HF_LLM to a qwen2 checkpoint dir")
     def test_real_weights_chat(self):
-        from mediquery_rag_tpu.llm.tpu_client import TPULLMClient
+        from mediquery_rag.llm.device_client import DeviceLLMClient
 
-        client = TPULLMClient.from_hf(self.path, max_new_tokens=16)
+        client = DeviceLLMClient.from_hf(self.path, max_new_tokens=16)
         out = client.complete("只回答“是”或“否”：高血压患者应该减少盐摄入吗？")
         assert out.strip()

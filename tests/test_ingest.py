@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.config import EngineConfig
-from mediquery_rag_tpu.ingest import build_document_store, parse_corpus, parse_corpus_file
-from mediquery_rag_tpu.ingest.pipeline import DocumentStore
-from mediquery_rag_tpu.models import HashingEmbedder
+from mediquery_rag.config import EngineConfig
+from mediquery_rag.ingest import build_document_store, parse_corpus, parse_corpus_file
+from mediquery_rag.ingest.pipeline import DocumentStore
+from mediquery_rag.models import HashingEmbedder
 
 CORPUS = "data/medical_data.txt"
-CFG = EngineConfig(dim=256, dtype="float32", corpus_tile=256, query_tile=32)
+CFG = EngineConfig(dim=256, dtype="float32", corpus_tile=256)
 
 
 class TestParser:
@@ -101,7 +101,7 @@ class TestDocumentStoreMutation:
         return build_document_store(CORPUS, HashingEmbedder(dim=256), CFG)
 
     def test_add_documents(self):
-        from mediquery_rag_tpu.ingest.parser import Chunk
+        from mediquery_rag.ingest.parser import Chunk
         store = self._store()
         n0 = store.live_count
         new = [Chunk(chunk_id="900", title="新增测试问题",
@@ -125,7 +125,7 @@ class TestDocumentStoreMutation:
                        for d in row)
 
     def test_mutation_save_load_roundtrip(self, tmp_path):
-        from mediquery_rag_tpu.ingest.parser import Chunk
+        from mediquery_rag.ingest.parser import Chunk
         emb = HashingEmbedder(dim=256)
         store = self._store()
         gone = store.chunks[2].chunk_id
@@ -207,7 +207,7 @@ class TestParserFuzz:
 def test_where_filter_large_k_and_corpus():
     """where-filter with 4*k past the kernel cap must not crash (fetch is
     clamped to 128; the widened fallback covers rare matches)."""
-    from mediquery_rag_tpu.ingest.parser import Chunk
+    from mediquery_rag.ingest.parser import Chunk
     chunks = [Chunk(chunk_id=str(i), title=f"问题{i}",
                     content=f"与主题{i % 7}有关的内容描述。",
                     source="unit", tags=[f"主题{i % 7}"])
@@ -226,7 +226,7 @@ class TestInt4Store:
 
     def test_int4_flat_store_retrieves(self):
         cfg = EngineConfig(dim=256, dtype="int4", corpus_tile=256,
-                           query_tile=32, rerank_factor=4)
+                           rerank_factor=4)
         store = build_document_store(CORPUS, HashingEmbedder(dim=256), cfg)
         docs = store.similarity_search("高血压患者吃饭要注意什么 饮食 限盐", k=3)
         assert len(docs) == 3
@@ -244,10 +244,10 @@ class TestInt4Store:
         """kind='streaming' builds the beyond-HBM tier behind the same
         DocumentStore search surface (engine/streaming.py)."""
         cfg = EngineConfig(dim=256, dtype="int8", corpus_tile=256,
-                           query_tile=32)
+                           )
         store = build_document_store(CORPUS, HashingEmbedder(dim=256), cfg,
                                      kind="streaming")
-        from mediquery_rag_tpu.engine import StreamingFlatIndex
+        from mediquery_rag.engine import StreamingFlatIndex
         assert isinstance(store.index, StreamingFlatIndex)
         docs = store.similarity_search("高血压患者吃饭要注意什么 饮食 限盐", k=3)
         assert len(docs) == 3
@@ -269,23 +269,23 @@ class TestAppContextIndexKind:
         return str(tmp_path)
 
     def test_ivf_kind_builds_then_switch_rebuilds(self, tmp_path):
-        from mediquery_rag_tpu.cli.context import AppContext
-        from mediquery_rag_tpu.engine import FlatIndex, IVFIndex
+        from mediquery_rag.cli.context import AppContext
+        from mediquery_rag.engine import FlatIndex, IVFIndex
 
         root = self._mini_root(tmp_path)
-        ctx = AppContext.build(root, fake_llm=True, use_tpu_embedder=False,
+        ctx = AppContext.build(root, fake_llm=True, use_trained_encoder=False,
                                index_kind="ivf")
         assert isinstance(ctx.store.index, IVFIndex)
         hits = ctx.store.similarity_search("高血压 饮食 限盐", k=3)
         assert any("高血压" in d.text for d in hits)
 
         # same root, flat requested: the saved ivf index must be rebuilt
-        ctx2 = AppContext.build(root, fake_llm=True, use_tpu_embedder=False,
+        ctx2 = AppContext.build(root, fake_llm=True, use_trained_encoder=False,
                                 index_kind="flat")
         assert isinstance(ctx2.store.index, FlatIndex)
 
     def test_unknown_kind_rejected(self, tmp_path):
-        from mediquery_rag_tpu.cli.context import AppContext
+        from mediquery_rag.cli.context import AppContext
         with pytest.raises(ValueError, match="index_kind"):
             AppContext.build(self._mini_root(tmp_path), fake_llm=True,
-                             use_tpu_embedder=False, index_kind="hnsw")
+                             use_trained_encoder=False, index_kind="hnsw")

@@ -20,9 +20,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.config import DecoderConfig
-from mediquery_rag_tpu.models.generate import Generator
-from mediquery_rag_tpu.serve.llm import LLMServer
+from mediquery_rag.config import DecoderConfig
+from mediquery_rag.models.generate import Generator
+from mediquery_rag.serve.llm import LLMServer
 
 KW = dict(vocab_size=384, hidden=64, layers=2, heads=4, mlp_dim=128,
           max_len=1024, dtype="float32")
@@ -117,7 +117,7 @@ class TestServingEquivalences:
         G-token extend and G sequential slot steps quantize each fresh
         column once with the same per-column scale, so they must agree
         EXACTLY."""
-        from mediquery_rag_tpu.models.decoder import KVCache
+        from mediquery_rag.models.decoder import KVCache
 
         tok = gen_q8.tokenizer
         ids, mask = tok.batch_encode(["高血压", "糖尿病运动"])
@@ -166,7 +166,7 @@ class TestServingEquivalences:
         # (a cold prefill attends fresh bf16 K within the prompt, an
         # extension attends the stored int8 prefix) — pin that the flow
         # works and reuses the prefix, not bit-equality
-        from mediquery_rag_tpu.serve.llm import ChatSession
+        from mediquery_rag.serve.llm import ChatSession
         with LLMServer(gen_q8, slots=2, chunk=8) as srv:
             s = ChatSession(srv, max_new_tokens=16)
             r1 = s.ask("高血压饮食")
@@ -210,7 +210,7 @@ class TestGQAQuant:
                               np.asarray(d8).argmax(-1))
 
     def test_extend_slots_matches_sequential_gqa(self, pair):
-        from mediquery_rag_tpu.models.decoder import KVCache
+        from mediquery_rag.models.decoder import KVCache
         _, q8 = pair
         tok = q8.tokenizer
         ids, mask = tok.batch_encode(["高血压", "糖尿病"])
@@ -249,7 +249,7 @@ class TestLockstepSpeculativeQuant:
     def test_speculative_generator_runs_int8(self, gen_q8):
         """The lockstep SpeculativeGenerator must thread the scale rows
         (it crashed with dtype mismatch before) and stay lossless."""
-        from mediquery_rag_tpu.models.speculative import SpeculativeGenerator
+        from mediquery_rag.models.speculative import SpeculativeGenerator
         draft = Generator(DecoderConfig(
             vocab_size=384, hidden=32, layers=1, heads=2, mlp_dim=64,
             max_len=1024, dtype="float32", kv_dtype="int8"),

@@ -10,9 +10,9 @@ asked to hit (recall@10 >= 0.95, recall@1 >= 0.70).
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.ingest import parse_corpus_file
-from mediquery_rag_tpu.models.lexical import IDFHashingEmbedder, char_ngrams
-from mediquery_rag_tpu.models.lexicon import expand_query
+from mediquery_rag.ingest import parse_corpus_file
+from mediquery_rag.models.lexical import IDFHashingEmbedder, char_ngrams
+from mediquery_rag.models.lexicon import expand_query
 
 CORPUS = "data/medical_data.txt"
 
@@ -110,7 +110,7 @@ class TestHeldoutQualityGate:
     lexical-channel regression fails CI, not just a benchmark table."""
 
     def test_shipping_lexical_channel_meets_bar(self, lex, chunks):
-        from mediquery_rag_tpu.models.eval import load_heldout, \
+        from mediquery_rag.models.eval import load_heldout, \
             retrieval_recall
         heldout = load_heldout()
         r = retrieval_recall(
@@ -138,13 +138,13 @@ class TestTier2BlindSpot:
 
     @pytest.fixture(scope="class")
     def tier2(self):
-        from mediquery_rag_tpu.models.eval import load_heldout
+        from mediquery_rag.models.eval import load_heldout
         return load_heldout("data/heldout_tier2.tsv")
 
     def test_construction_near_zero_overlap(self, tier2, chunks):
         """The tier IS what it claims: mean content-bigram overlap with the
         gold doc far below tier-1's (0.055 vs 0.206 at authoring time)."""
-        from mediquery_rag_tpu.models.eval import load_heldout
+        from mediquery_rag.models.eval import load_heldout
         by_id = {c.chunk_id: c for c in chunks}
 
         def mean_overlap(pairs):
@@ -169,7 +169,7 @@ class TestTier2BlindSpot:
             assert q not in raw
 
     def test_shipping_channel_meets_tier2_bar(self, lex, chunks, tier2):
-        from mediquery_rag_tpu.models.eval import retrieval_recall
+        from mediquery_rag.models.eval import retrieval_recall
         r = retrieval_recall(
             lex.embed, chunks, [c.chunk_id for c in chunks],
             [q for _, q in tier2], [cid for cid, _ in tier2],
@@ -183,7 +183,7 @@ class TestTier2BlindSpot:
     def test_doc_expansion_is_the_measured_win(self, chunks, tier2):
         """Without expand_doc the tier regresses (r@10 .925 vs .975) —
         guards the doc_expand wiring against silent loss."""
-        from mediquery_rag_tpu.models.eval import retrieval_recall
+        from mediquery_rag.models.eval import retrieval_recall
         off = IDFHashingEmbedder.fit_chunks(chunks, doc_expand=False)
         on = IDFHashingEmbedder.fit_chunks(chunks, doc_expand=True)
         args = (chunks, [c.chunk_id for c in chunks],
@@ -196,12 +196,12 @@ class TestTier2BlindSpot:
 
 class TestExpandDoc:
     def test_inverse_triggers(self):
-        from mediquery_rag_tpu.models.lexicon import expand_doc
+        from mediquery_rag.models.lexicon import expand_doc
         out = expand_doc("力量训练对中老年人有什么好处？")
         assert "撸铁" in out and "举铁" in out
 
     def test_empty_when_no_canonical_terms(self):
-        from mediquery_rag_tpu.models.lexicon import expand_doc
+        from mediquery_rag.models.lexicon import expand_doc
         assert expand_doc("量子计算的指令集") == ""
 
     def test_doc_expand_roundtrips(self, chunks, tmp_path):
@@ -217,7 +217,7 @@ class TestExpandDoc:
 class TestPipelineIntegration:
     def test_store_uses_embed_docs_and_roundtrips(self, lex, chunks,
                                                   tmp_path):
-        from mediquery_rag_tpu.ingest import (
+        from mediquery_rag.ingest import (
             DocumentStore, build_document_store)
         store = build_document_store(chunks[:32], lex)
         # vectors in the index must be the field-weighted doc vectors,
@@ -233,7 +233,7 @@ class TestPipelineIntegration:
                 ] == [d.text for d in docs]
 
     def test_add_documents_uses_embed_docs(self, lex, chunks):
-        from mediquery_rag_tpu.ingest import build_document_store
+        from mediquery_rag.ingest import build_document_store
         store = build_document_store(chunks[:16], lex)
         ids = store.add_documents(list(chunks[16:20]))
         assert ids == [16, 17, 18, 19]
@@ -241,7 +241,7 @@ class TestPipelineIntegration:
         assert any(chunks[17].content in d.text for d in docs)
 
     def test_hybrid_embed_docs_path(self, lex, chunks):
-        from mediquery_rag_tpu.models import HybridEmbedder
+        from mediquery_rag.models import HybridEmbedder
 
         def sem(texts):
             return np.stack([np.cos(np.arange(16) * (1 + len(t)))
@@ -259,7 +259,7 @@ class TestPipelineIntegration:
 
 class TestSSLData:
     def test_example_views_and_rows(self, chunks):
-        from mediquery_rag_tpu.models.data import ssl_examples_from_chunks
+        from mediquery_rag.models.data import ssl_examples_from_chunks
         ex = ssl_examples_from_chunks(chunks[:10], seed=0)
         rows = {r for _, _, r in ex}
         assert rows == set(range(10))
@@ -269,7 +269,7 @@ class TestSSLData:
         assert len(ex) > 2 * 10
 
     def test_colloquialize_swaps_terms(self):
-        from mediquery_rag_tpu.models.data import colloquialize
+        from mediquery_rag.models.data import colloquialize
         rng = np.random.default_rng(0)
         outs = {colloquialize("力量训练对中老年人有什么好处", rng, p=1.0)
                 for _ in range(8)}
@@ -278,7 +278,7 @@ class TestSSLData:
                    for o in outs)
 
     def test_hard_negatives_exclude_gold(self, lex, chunks):
-        from mediquery_rag_tpu.models.data import (
+        from mediquery_rag.models.data import (
             mine_hard_negatives, ssl_examples_from_chunks)
         ex = ssl_examples_from_chunks(chunks[:20], seed=0)
         negs = mine_hard_negatives(ex, chunks[:20], lex)
@@ -287,8 +287,8 @@ class TestSSLData:
             assert n != chunks[row].content
 
     def test_triplet_loader_shapes(self, chunks):
-        from mediquery_rag_tpu.models import HashCharTokenizer
-        from mediquery_rag_tpu.models.data import (
+        from mediquery_rag.models import HashCharTokenizer
+        from mediquery_rag.models.data import (
             TripletLoader, ssl_examples_from_chunks)
         ex = ssl_examples_from_chunks(chunks[:12], seed=0)
         tok = HashCharTokenizer(512, 64)
@@ -302,11 +302,11 @@ class TestSSLData:
 class TestTrainerWithNegativesAndDropout:
     def test_loss_decreases(self, chunks):
         import jax
-        from mediquery_rag_tpu.config import EmbedderConfig, TrainConfig
-        from mediquery_rag_tpu.models import HashCharTokenizer
-        from mediquery_rag_tpu.models.data import (
+        from mediquery_rag.config import EmbedderConfig, TrainConfig
+        from mediquery_rag.models import HashCharTokenizer
+        from mediquery_rag.models.data import (
             TripletLoader, ssl_examples_from_chunks)
-        from mediquery_rag_tpu.models.trainer import ContrastiveTrainer
+        from mediquery_rag.models.trainer import ContrastiveTrainer
         mcfg = EmbedderConfig(vocab_size=512, hidden=64, layers=2, heads=4,
                               mlp_dim=128, max_len=64, dtype="float32",
                               dropout=0.1)
@@ -327,8 +327,8 @@ class TestTrainerWithNegativesAndDropout:
 
     def test_dropout_views_differ_and_inference_deterministic(self):
         import jax
-        from mediquery_rag_tpu.config import EmbedderConfig
-        from mediquery_rag_tpu.models import Embedder
+        from mediquery_rag.config import EmbedderConfig
+        from mediquery_rag.models import Embedder
         cfg = EmbedderConfig(vocab_size=128, hidden=32, layers=2, heads=2,
                              mlp_dim=64, max_len=16, dtype="float32",
                              dropout=0.3)
@@ -363,7 +363,7 @@ class TestMinedChannelProvenance:
         """The fit corpus = chunk text + tags + the doc-side lexicon
         expansion of title/tags — a pure function of the corpus and the
         static lexicon, never of any query set."""
-        from mediquery_rag_tpu.models.lexicon import expand_doc
+        from mediquery_rag.models.lexicon import expand_doc
         lex = IDFHashingEmbedder.fit_chunks(chunks)
         fit_texts = "".join(
             c.text + "\n" + "，".join(c.tags or [])

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.config import DecoderConfig, LoraConfig, TrainConfig
-from mediquery_rag_tpu.models.byte_tokenizer import ByteTokenizer
-from mediquery_rag_tpu.models.decoder import Decoder
-from mediquery_rag_tpu.models.lora import (
+from mediquery_rag.config import DecoderConfig, LoraConfig, TrainConfig
+from mediquery_rag.models.byte_tokenizer import ByteTokenizer
+from mediquery_rag.models.decoder import Decoder
+from mediquery_rag.models.lora import (
     LoraTrainer, load_adapters, lora_init, lora_merge, lora_partition_specs,
     save_adapters,
 )
-from mediquery_rag_tpu.models.train_lm import LMLoader
+from mediquery_rag.models.train_lm import LMLoader
 
 DCFG = DecoderConfig(vocab_size=384, hidden=64, layers=2, heads=4,
                      kv_heads=2, mlp_dim=128, max_len=256, dtype="float32")
@@ -63,7 +63,7 @@ def test_training_moves_loss_not_base(base):
 
 
 def test_merged_generator_serves(base):
-    from mediquery_rag_tpu.models import Generator
+    from mediquery_rag.models import Generator
     model, params = base
     adapters = lora_init(jax.random.PRNGKey(3), params, LCFG)
     # give b some mass so the merge actually changes the weights
@@ -76,7 +76,7 @@ def test_merged_generator_serves(base):
 
 
 def test_quantized_base_rejected(base):
-    from mediquery_rag_tpu.models import Generator
+    from mediquery_rag.models import Generator
     model, params = base
     gen = Generator(DCFG, params=jax.tree_util.tree_map(lambda x: x, params))
     gen.params = {**gen.params, "blocks": dict(gen.params["blocks"])}
@@ -100,7 +100,7 @@ def test_tp_specs_and_mesh_step(base):
     """Adapter shardings follow the base Megatron layout and one DP x TP
     train step runs on the 8-device virtual mesh."""
     from jax.sharding import PartitionSpec as P
-    from mediquery_rag_tpu.parallel import make_mesh
+    from mediquery_rag.parallel import make_mesh
 
     model, params = base
     specs = lora_partition_specs(model, LCFG)

@@ -5,15 +5,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mediquery_rag_tpu.config import EmbedderConfig, TrainConfig
-from mediquery_rag_tpu.models import (
+from mediquery_rag.config import EmbedderConfig, TrainConfig
+from mediquery_rag.models import (
     Embedder,
     HashingEmbedder,
     HashCharTokenizer,
     TextEmbedder,
 )
-from mediquery_rag_tpu.models.trainer import Batch, ContrastiveTrainer
-from mediquery_rag_tpu.parallel import make_mesh
+from mediquery_rag.models.trainer import Batch, ContrastiveTrainer
+from mediquery_rag.parallel import make_mesh
 
 TINY = EmbedderConfig(
     vocab_size=512, hidden=64, layers=2, heads=4, mlp_dim=128, max_len=128,
@@ -133,15 +133,15 @@ class TestCrossEncoder:
     """Second model family: joint (query, doc) relevance scorer."""
 
     def _cfg(self):
-        from mediquery_rag_tpu.config import EmbedderConfig
+        from mediquery_rag.config import EmbedderConfig
         return EmbedderConfig(vocab_size=1024, hidden=128, layers=2, heads=4,
                               mlp_dim=256, max_len=128, dtype="float32")
 
     def test_forward_shapes(self):
         import jax
         import jax.numpy as jnp
-        from mediquery_rag_tpu.models import CrossEncoder, HashCharTokenizer
-        from mediquery_rag_tpu.models.cross_encoder import encode_pairs
+        from mediquery_rag.models import CrossEncoder, HashCharTokenizer
+        from mediquery_rag.models.cross_encoder import encode_pairs
         cfg = self._cfg()
         ce = CrossEncoder(cfg)
         params = ce.init(jax.random.PRNGKey(0))
@@ -157,8 +157,8 @@ class TestCrossEncoder:
         """After a few epochs on toy pairs, true pairs must outscore
         mismatches — the signal the grader thresholds on."""
         import numpy as np
-        from mediquery_rag_tpu.models import train_cross_encoder
-        from mediquery_rag_tpu.models.cross_encoder import (
+        from mediquery_rag.models import train_cross_encoder
+        from mediquery_rag.models.cross_encoder import (
             CrossEncoder, encode_pairs)
         import jax.numpy as jnp
         cfg = self._cfg()
@@ -186,15 +186,15 @@ class TestCrossEncoder:
     def test_grader_plugs_into_graph(self):
         """grade_fn replaces the LLM grade: a grader that always says yes
         short-circuits the rewrite loop."""
-        from mediquery_rag_tpu.config import EngineConfig
-        from mediquery_rag_tpu.graph import build_medical_graph, create_nodes
-        from mediquery_rag_tpu.ingest import build_document_store
-        from mediquery_rag_tpu.llm import RuleLLM, user
-        from mediquery_rag_tpu.models import HashingEmbedder
+        from mediquery_rag.config import EngineConfig
+        from mediquery_rag.graph import build_medical_graph, create_nodes
+        from mediquery_rag.ingest import build_document_store
+        from mediquery_rag.llm import RuleLLM, user
+        from mediquery_rag.models import HashingEmbedder
         store = build_document_store(
             "data/medical_data.txt", HashingEmbedder(256),
             EngineConfig(dim=256, dtype="float32", corpus_tile=256,
-                         query_tile=32))
+                         ))
         seen = []
 
         def grader(q, texts):
@@ -213,7 +213,7 @@ class TestCrossEncoder:
 
     def test_trained_grader_roundtrip(self, tmp_path):
         import jax
-        from mediquery_rag_tpu.models.cross_encoder import (
+        from mediquery_rag.models.cross_encoder import (
             CrossEncoder, TrainedGrader)
         cfg = self._cfg()
         params = CrossEncoder(cfg).init(jax.random.PRNGKey(3))
@@ -229,7 +229,7 @@ class TestCrossEncoder:
         """Bi-encoder grader: max cosine over docs vs threshold; empty doc
         list grades False; a doc identical to the query grades True."""
         import numpy as np
-        from mediquery_rag_tpu.models.cross_encoder import SimilarityGrader
+        from mediquery_rag.models.cross_encoder import SimilarityGrader
 
         def unit_hash_embed(texts):
             rows = []
@@ -253,7 +253,7 @@ class TestHybridEmbedder:
 
     def _embedders(self):
         import numpy as np
-        from mediquery_rag_tpu.models import HashingEmbedder
+        from mediquery_rag.models import HashingEmbedder
 
         def sem(texts):  # deterministic fake semantic embedder, NOT normed
             rng = [np.cos(np.arange(16) * (1 + len(t))) for t in texts]
@@ -263,7 +263,7 @@ class TestHybridEmbedder:
 
     def test_fused_score_equals_weighted_cosines(self):
         import numpy as np
-        from mediquery_rag_tpu.models import HybridEmbedder
+        from mediquery_rag.models import HybridEmbedder
         lex, sem = self._embedders()
         hy = HybridEmbedder(lex, sem, w_lex=0.8)
         texts = ["高血压饮食建议", "糖尿病运动指导", "高血压用药提醒"]
@@ -284,7 +284,7 @@ class TestHybridEmbedder:
 
     def test_invalid_weight_rejected(self):
         import pytest
-        from mediquery_rag_tpu.models import HybridEmbedder
+        from mediquery_rag.models import HybridEmbedder
         lex, sem = self._embedders()
         for w in (0.0, 1.0, -0.2, 1.5):
             with pytest.raises(ValueError):
@@ -293,9 +293,9 @@ class TestHybridEmbedder:
     def test_document_store_roundtrip(self, tmp_path):
         """The hybrid embedder works through build/save/load of the store —
         fingerprint check included (the concat dim flows into EngineConfig)."""
-        from mediquery_rag_tpu.ingest import (
+        from mediquery_rag.ingest import (
             DocumentStore, build_document_store)
-        from mediquery_rag_tpu.models import HybridEmbedder
+        from mediquery_rag.models import HybridEmbedder
         lex, sem = self._embedders()
         hy = HybridEmbedder(lex, sem, w_lex=0.7)
         store = build_document_store("data/medical_data.txt", hy)
@@ -312,9 +312,9 @@ class TestDataParallelEmbed:
         """DP ingest embedding over the 8-device mesh must match the
         single-device outputs (params replicated, batch rows sharded)."""
         import numpy as np
-        from mediquery_rag_tpu.config import EmbedderConfig
-        from mediquery_rag_tpu.models import TextEmbedder
-        from mediquery_rag_tpu.parallel import make_mesh
+        from mediquery_rag.config import EmbedderConfig
+        from mediquery_rag.models import TextEmbedder
+        from mediquery_rag.parallel import make_mesh
         cfg = EmbedderConfig(vocab_size=512, hidden=64, layers=2, heads=4,
                              mlp_dim=128, max_len=128, dtype="float32")
         single = TextEmbedder(cfg)

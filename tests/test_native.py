@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.native import hnsw_available
+from mediquery_rag.native import hnsw_available
 
 pytestmark = pytest.mark.skipif(
     not hnsw_available(), reason="native toolchain unavailable")
@@ -19,7 +19,7 @@ def _clustered(n, d, seed=0):
 
 class TestHNSW:
     def test_recall_on_clustered(self):
-        from mediquery_rag_tpu.native import HNSWIndex
+        from mediquery_rag.native import HNSWIndex
         x = _clustered(5000, 64)
         rng = np.random.default_rng(1)
         q = x[rng.integers(0, 5000, 20)] + 0.05 * rng.standard_normal((20, 64)).astype(np.float32)
@@ -33,7 +33,7 @@ class TestHNSW:
         assert rec >= 0.9, rec
 
     def test_exact_self_lookup(self):
-        from mediquery_rag_tpu.native import HNSWIndex
+        from mediquery_rag.native import HNSWIndex
         x = _clustered(1000, 32)
         ix = HNSWIndex(32, M=16, ef_construction=100)
         ix.add(x)
@@ -41,7 +41,7 @@ class TestHNSW:
         assert (i[:, 0] == np.arange(10)).mean() >= 0.9
 
     def test_custom_labels_and_memory(self):
-        from mediquery_rag_tpu.native import HNSWIndex
+        from mediquery_rag.native import HNSWIndex
         x = _clustered(100, 32)
         ix = HNSWIndex(32)
         ix.add(x, labels=np.arange(1000, 1100))
@@ -50,7 +50,7 @@ class TestHNSW:
         assert ix.nbytes > 100 * 32 * 4
 
     def test_empty_search(self):
-        from mediquery_rag_tpu.native import HNSWIndex
+        from mediquery_rag.native import HNSWIndex
         ix = HNSWIndex(16)
         s, i = ix.search(np.zeros(16, np.float32), 5)
         assert (s == -np.inf).all()
@@ -58,7 +58,7 @@ class TestHNSW:
     def test_parallel_batch_matches_serial(self):
         """OpenMP query-parallel search (per-thread visited tables over the
         read-only graph) must be bit-identical to the serial path."""
-        from mediquery_rag_tpu.native import HNSWIndex
+        from mediquery_rag.native import HNSWIndex
         x = _clustered(3000, 48, seed=3)
         rng = np.random.default_rng(4)
         q = x[rng.integers(0, 3000, 64)]
@@ -76,8 +76,8 @@ class TestNativeTokenizer:
 
     def test_exactness_vs_python(self):
         import random
-        from mediquery_rag_tpu.models.tokenizer import HashCharTokenizer
-        from mediquery_rag_tpu.native.tokenizer import (
+        from mediquery_rag.models.tokenizer import HashCharTokenizer
+        from mediquery_rag.native.tokenizer import (
             native_available, tok_batch)
         if not native_available():
             import pytest
@@ -101,8 +101,8 @@ class TestNativeTokenizer:
             assert (ids[r, len(e):] == 0).all()
 
     def test_batch_encode_native_matches_fallback(self):
-        from mediquery_rag_tpu.models.tokenizer import HashCharTokenizer
-        from mediquery_rag_tpu.native import tokenizer as nt
+        from mediquery_rag.models.tokenizer import HashCharTokenizer
+        from mediquery_rag.native import tokenizer as nt
         if not nt.native_available():
             import pytest
             pytest.skip("no C++ toolchain")
@@ -132,7 +132,7 @@ class TestNativeRerank:
                 np.take_along_axis(cand, top, axis=1))
 
     def test_matches_numpy_oracle(self):
-        from mediquery_rag_tpu.native.rerank import (
+        from mediquery_rag.native.rerank import (
             native_rerank, rerank_available)
         if not rerank_available():
             pytest.skip("no C++ toolchain")
@@ -149,7 +149,7 @@ class TestNativeRerank:
         np.testing.assert_allclose(s_n, s_o, rtol=2e-3, atol=2e-3)
 
     def test_duplicate_candidates_stable_ties(self):
-        from mediquery_rag_tpu.native.rerank import (
+        from mediquery_rag.native.rerank import (
             native_rerank, rerank_available)
         if not rerank_available():
             pytest.skip("no C++ toolchain")
@@ -165,8 +165,8 @@ class TestNativeRerank:
     def test_host_rerank_dispatches_native(self):
         """engine.flat.host_rerank must produce identical ids through both
         paths on f16 refine input."""
-        from mediquery_rag_tpu.engine import flat as flat_mod
-        from mediquery_rag_tpu.native import rerank as nr
+        from mediquery_rag.engine import flat as flat_mod
+        from mediquery_rag.native import rerank as nr
         if not nr.rerank_available():
             pytest.skip("no C++ toolchain")
         rng = np.random.default_rng(3)
@@ -187,13 +187,13 @@ class TestNativeLexical:
     index) depends on it."""
 
     def _embedder(self):
-        from mediquery_rag_tpu.ingest import parse_corpus_file
-        from mediquery_rag_tpu.models.lexical import IDFHashingEmbedder
+        from mediquery_rag.ingest import parse_corpus_file
+        from mediquery_rag.models.lexical import IDFHashingEmbedder
         chunks = parse_corpus_file("data/medical_data.txt")
         return IDFHashingEmbedder.fit_chunks(chunks), chunks
 
     def test_exactness_vs_python(self):
-        from mediquery_rag_tpu.native import lexical as nl
+        from mediquery_rag.native import lexical as nl
         if not nl.native_available():
             pytest.skip("no C++ toolchain")
         lex, chunks = self._embedder()
@@ -218,7 +218,7 @@ class TestNativeLexical:
         """embed()/embed_docs() (which auto-pick the native path) must
         equal a forced-Python embedder bit-for-bit, so the fingerprint is
         path-independent."""
-        from mediquery_rag_tpu.native import lexical as nl
+        from mediquery_rag.native import lexical as nl
         if not nl.native_available():
             pytest.skip("no C++ toolchain")
         lex, chunks = self._embedder()
@@ -238,7 +238,7 @@ class TestNativeLexical:
         reason it exists); generous 2x bar to stay robust on a loaded
         host."""
         import time
-        from mediquery_rag_tpu.native import lexical as nl
+        from mediquery_rag.native import lexical as nl
         if not nl.native_available():
             pytest.skip("no C++ toolchain")
         lex, chunks = self._embedder()

@@ -1,4 +1,4 @@
-"""Kernel-level numerics: Pallas fused scoring/top-k vs the XLA oracle.
+"""Op-level numerics: the flat scan + two-stage top-k vs the one-stage oracle.
 
 SURVEY.md §4 test class (2): kernel numerics vs jnp reference on small
 matrices (the reference had no tests at all; this is net-new strategy).
@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.ops import exact_topk, flat_search, flat_search_xla, merge_topk
-from mediquery_rag_tpu.ops.topk import merge_topk_many
+from mediquery_rag.ops import exact_topk, flat_search, flat_search_xla, merge_topk
+from mediquery_rag.ops.topk import merge_topk_many
 
 
 def _corpus(n, d, seed=0, dtype=jnp.float32):

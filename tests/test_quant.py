@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.config import EngineConfig
-from mediquery_rag_tpu.engine import FlatIndex
-from mediquery_rag_tpu.obs import recall_at_k
-from mediquery_rag_tpu.ops import flat_search_xla
-from mediquery_rag_tpu.ops.quant import (
+from mediquery_rag.config import EngineConfig
+from mediquery_rag.engine import FlatIndex
+from mediquery_rag.obs import recall_at_k
+from mediquery_rag.ops import flat_search_xla
+from mediquery_rag.ops.quant import (
     dequantize_int4, int4_flat_search, int8_flat_search, quantize_rows,
     quantize_rows_int4, unpack_int4,
 )
@@ -66,7 +66,7 @@ class TestInt8Search:
 
 class TestFlatIndexInt8:
     def test_build_search(self):
-        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256, query_tile=32)
+        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256)
         c = _vecs(2000, 64, seed=5)
         idx = FlatIndex.build(c, cfg)
         assert idx.corpus.dtype == jnp.int8
@@ -82,7 +82,7 @@ class TestFlatIndexInt8:
         assert i8.nbytes < bf.nbytes * 0.6
 
     def test_save_load_add(self, tmp_path):
-        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256, query_tile=32)
+        cfg = EngineConfig(dim=64, dtype="int8", corpus_tile=256)
         c = _vecs(500, 64, seed=8)
         idx = FlatIndex.build(c, cfg)
         idx.save(str(tmp_path / "ix"))
@@ -199,7 +199,7 @@ class TestFlatIndexInt4:
 
     def test_save_load_add_delete(self, tmp_path):
         cfg = EngineConfig(dim=64, dtype="int4", corpus_tile=256,
-                           query_tile=32, rerank_factor=4)
+                           rerank_factor=4)
         c = _vecs(500, 64, seed=30)
         idx = FlatIndex.build(c, cfg)
         idx.save(str(tmp_path / "i4"))
@@ -215,11 +215,11 @@ class TestFlatIndexInt4:
         assert int(i[0]) == 503      # stable id survives the deletes
 
     def test_sharded_int4(self):
-        from mediquery_rag_tpu.engine import ShardedFlatIndex
-        from mediquery_rag_tpu.parallel import corpus_mesh
+        from mediquery_rag.engine import ShardedFlatIndex
+        from mediquery_rag.parallel import corpus_mesh
         mesh = corpus_mesh(8)
         cfg = EngineConfig(dim=64, dtype="int4", corpus_tile=256,
-                           query_tile=32)
+                           )
         c = _vecs(3000, 64, seed=33)
         q = _vecs(8, 64, seed=34)
         idx = ShardedFlatIndex.build(c, mesh, cfg)
@@ -246,7 +246,7 @@ class TestIVFInt4:
     """Int4 split-half packed buckets: half int8's probe bytes and HBM."""
 
     def test_full_probe_recall_and_scores(self):
-        from mediquery_rag_tpu.engine import IVFIndex
+        from mediquery_rag.engine import IVFIndex
         cfg = EngineConfig(dim=64, dtype="int4", ivf_nlist=16,
                            ivf_kmeans_iters=4)
         c = _vecs(2000, 64, seed=40)
@@ -261,20 +261,8 @@ class TestIVFInt4:
         s_ref, _ = flat_search_xla(q, c, 5)
         np.testing.assert_allclose(np.asarray(s), np.asarray(s_ref), atol=0.1)
 
-    def test_batched_matches_query_major(self):
-        from mediquery_rag_tpu.engine import IVFIndex
-        cfg = EngineConfig(dim=64, dtype="int4", ivf_nlist=8,
-                           ivf_kmeans_iters=3)
-        c = _vecs(1000, 64, seed=42)
-        idx = IVFIndex.build(c, cfg)
-        q = _vecs(16, 64, seed=43)
-        s1, i1 = idx.search(q, k=5, nprobe=4, batched=False)
-        s2, i2 = idx.search(q, k=5, nprobe=4, batched=True)
-        np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
-        np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), rtol=1e-5)
-
     def test_memory_half_of_int8(self):
-        from mediquery_rag_tpu.engine import IVFIndex
+        from mediquery_rag.engine import IVFIndex
         c = _vecs(2000, 128, seed=44)
         kw = dict(ivf_nlist=16, ivf_kmeans_iters=2)
         i4 = IVFIndex.build(c, EngineConfig(dim=128, dtype="int4", **kw),
@@ -286,7 +274,7 @@ class TestIVFInt4:
         assert vec4 * 2 == vec8
 
     def test_add_delete_stable_ids(self):
-        from mediquery_rag_tpu.engine import IVFIndex
+        from mediquery_rag.engine import IVFIndex
         cfg = EngineConfig(dim=64, dtype="int4", ivf_nlist=4,
                            ivf_kmeans_iters=2)
         c = _vecs(300, 64, seed=45)
@@ -301,7 +289,7 @@ class TestIVFInt4:
         assert 5 not in np.asarray(ii)
 
     def test_save_load(self, tmp_path):
-        from mediquery_rag_tpu.engine import IVFIndex
+        from mediquery_rag.engine import IVFIndex
         cfg = EngineConfig(dim=64, dtype="int4", ivf_nlist=8,
                            ivf_kmeans_iters=3)
         c = _vecs(500, 64, seed=47)
@@ -315,7 +303,7 @@ class TestIVFInt4:
         np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
 
     def test_streaming_matches_in_memory(self):
-        from mediquery_rag_tpu.engine import IVFIndex
+        from mediquery_rag.engine import IVFIndex
         cfg = EngineConfig(dim=64, dtype="int4", ivf_nlist=8,
                            ivf_kmeans_iters=3, ivf_sample=512)
         rng = np.random.default_rng(49)
@@ -336,7 +324,7 @@ class TestIVFInt4:
     def test_streaming_build_then_add(self):
         """Regression: int4 add() on a streaming-built index must slice the
         dummy tail bucket before unpacking (ADVICE r1: reshape TypeError)."""
-        from mediquery_rag_tpu.engine import IVFIndex
+        from mediquery_rag.engine import IVFIndex
         cfg = EngineConfig(dim=64, dtype="int4", ivf_nlist=8,
                            ivf_kmeans_iters=3, ivf_sample=512)
         rng = np.random.default_rng(53)
@@ -364,9 +352,9 @@ class TestIVFInt4:
             np.where(old >= 1000, np.asarray(i1), old), 1)).mean() > 0.9
 
     def test_sharded_matches_single_chip(self):
-        from mediquery_rag_tpu.engine.sharded_ivf import ShardedIVFIndex
-        from mediquery_rag_tpu.engine import IVFIndex
-        from mediquery_rag_tpu.parallel import corpus_mesh
+        from mediquery_rag.engine.sharded_ivf import ShardedIVFIndex
+        from mediquery_rag.engine import IVFIndex
+        from mediquery_rag.parallel import corpus_mesh
         mesh = corpus_mesh(8)
         cfg = EngineConfig(dim=64, dtype="int4", ivf_nlist=16,
                            ivf_kmeans_iters=3)
@@ -374,16 +362,13 @@ class TestIVFInt4:
         base = IVFIndex.build(c, cfg, key=jax.random.PRNGKey(3))
         sh = ShardedIVFIndex.from_single(base, mesh)
         q = _vecs(8, 64, seed=51)
-        s1, i1 = base.search(q, k=5, nprobe=6, batched=False)
-        s2, i2 = sh.search(q, k=5, nprobe=6, batched=False)
+        s1, i1 = base.search(q, k=5, nprobe=6)
+        s2, i2 = sh.search(q, k=5, nprobe=6)
         np.testing.assert_array_equal(np.sort(np.asarray(i1), axis=1),
                                       np.sort(np.asarray(i2), axis=1))
-        s3, i3 = sh.search(q, k=5, nprobe=6, batched=True)
-        np.testing.assert_array_equal(np.sort(np.asarray(i2), axis=1),
-                                      np.sort(np.asarray(i3), axis=1))
 
     def test_rerank_recovers_recall(self):
-        from mediquery_rag_tpu.engine import IVFIndex
+        from mediquery_rag.engine import IVFIndex
         cfg = EngineConfig(dim=768, dtype="int4", ivf_nlist=16,
                            ivf_kmeans_iters=3, rerank_factor=8)
         c = _vecs(2000, 768, seed=52)
@@ -405,9 +390,9 @@ class TestRerankRefinement:
         return x / jnp.linalg.norm(x, axis=-1, keepdims=True)
 
     def test_flat_rerank_recovers_recall(self):
-        from mediquery_rag_tpu.engine import FlatIndex
-        from mediquery_rag_tpu.obs import recall_at_k
-        from mediquery_rag_tpu.ops import flat_search_xla
+        from mediquery_rag.engine import FlatIndex
+        from mediquery_rag.obs import recall_at_k
+        from mediquery_rag.ops import flat_search_xla
         c = self._data()
         q = self._data(n=32, seed=141)
         _, i_ref = flat_search_xla(q, c, 10)
@@ -425,9 +410,9 @@ class TestRerankRefinement:
         assert r_rr >= 0.99, (r_plain, r_rr)
 
     def test_ivf_rerank(self):
-        from mediquery_rag_tpu.engine import IVFIndex
-        from mediquery_rag_tpu.obs import recall_at_k
-        from mediquery_rag_tpu.ops import flat_search_xla
+        from mediquery_rag.engine import IVFIndex
+        from mediquery_rag.obs import recall_at_k
+        from mediquery_rag.ops import flat_search_xla
         c = self._data()
         q = self._data(n=16, seed=142)
         _, i_ref = flat_search_xla(q, c, 10)
@@ -439,7 +424,7 @@ class TestRerankRefinement:
         assert recall_at_k(np.asarray(i_r), np.asarray(i_ref)) >= 0.99
 
     def test_rerank_survives_mutation_and_saveload(self, tmp_path):
-        from mediquery_rag_tpu.engine import FlatIndex
+        from mediquery_rag.engine import FlatIndex
         c = self._data(n=500)
         extra = self._data(n=5, seed=143)
         idx = FlatIndex.build(c, EngineConfig(dim=768, dtype="int8",
@@ -457,7 +442,7 @@ class TestRerankRefinement:
         np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
 
     def test_ivf_rerank_saveload(self, tmp_path):
-        from mediquery_rag_tpu.engine import IVFIndex
+        from mediquery_rag.engine import IVFIndex
         c = self._data(n=800)
         idx = IVFIndex.build(c, EngineConfig(dim=768, dtype="int8",
                                              ivf_nlist=8, ivf_kmeans_iters=3,
@@ -474,7 +459,7 @@ class TestRerankRefinement:
 def test_int4_save_after_delete_keeps_stable_ids(tmp_path):
     """Regression: FlatIndex.load padded the stable-id map to the PHYSICAL
     (packed) row count — negative pad once deletes had materialized ids."""
-    cfg = EngineConfig(dim=64, dtype="int4", corpus_tile=256, query_tile=32)
+    cfg = EngineConfig(dim=64, dtype="int4", corpus_tile=256)
     c = _vecs(500, 64, seed=60)
     idx = FlatIndex.build(c, cfg).delete([3, 7])
     idx.save(str(tmp_path / "i4d"))

@@ -5,12 +5,12 @@ import time
 
 import pytest
 
-from mediquery_rag_tpu.config import EngineConfig
-from mediquery_rag_tpu.ingest import build_document_store
-from mediquery_rag_tpu.models import HashingEmbedder
-from mediquery_rag_tpu.serve import BatchingSearchService
+from mediquery_rag.config import EngineConfig
+from mediquery_rag.ingest import build_document_store
+from mediquery_rag.models import HashingEmbedder
+from mediquery_rag.serve import BatchingSearchService
 
-CFG = EngineConfig(dim=256, dtype="float32", corpus_tile=256, query_tile=32)
+CFG = EngineConfig(dim=256, dtype="float32", corpus_tile=256)
 
 
 @pytest.fixture()
@@ -75,7 +75,7 @@ class TestMicroBatcher:
     """Generic item-level coalescer (serve/batcher.py:MicroBatcher)."""
 
     def test_coalesces_and_fans_out(self):
-        from mediquery_rag_tpu.serve.batcher import MicroBatcher
+        from mediquery_rag.serve.batcher import MicroBatcher
         calls = []
 
         def fn(items):
@@ -103,7 +103,7 @@ class TestMicroBatcher:
             mb.shutdown()
 
     def test_submit_many_preserves_order(self):
-        from mediquery_rag_tpu.serve.batcher import MicroBatcher
+        from mediquery_rag.serve.batcher import MicroBatcher
         mb = MicroBatcher(lambda xs: [x + 1 for x in xs],
                           max_batch=4, max_wait_ms=1)
         try:
@@ -112,7 +112,7 @@ class TestMicroBatcher:
             mb.shutdown()
 
     def test_exception_fans_out(self):
-        from mediquery_rag_tpu.serve.batcher import MicroBatcher
+        from mediquery_rag.serve.batcher import MicroBatcher
 
         def broken(items):
             raise RuntimeError("embedder down")
@@ -125,7 +125,7 @@ class TestMicroBatcher:
             mb.shutdown()
 
     def test_shutdown_idempotent(self):
-        from mediquery_rag_tpu.serve.batcher import MicroBatcher
+        from mediquery_rag.serve.batcher import MicroBatcher
         mb = MicroBatcher(lambda xs: xs)
         mb.shutdown()
         mb.shutdown()
@@ -133,10 +133,10 @@ class TestMicroBatcher:
 
 def test_selfrag_sessions_coalesce_through_batcher():
     """N concurrent Self-RAG sessions with the batcher as the graph's store:
-    their retrieve nodes coalesce into shared TPU batches (the BASELINE
+    their retrieve nodes coalesce into shared device batches (the BASELINE
     north star — the loop issues batched queries straight into the engine)."""
-    from mediquery_rag_tpu.graph import build_medical_graph, create_nodes
-    from mediquery_rag_tpu.llm import RuleLLM, user
+    from mediquery_rag.graph import build_medical_graph, create_nodes
+    from mediquery_rag.llm import RuleLLM, user
 
     store = build_document_store("data/medical_data.txt", HashingEmbedder(256), CFG)
     svc = BatchingSearchService(store.batch_search, max_batch=8, max_wait_ms=30)
@@ -173,9 +173,9 @@ class TestHTTPServer:
 
     @pytest.fixture()
     def server(self):
-        from mediquery_rag_tpu.graph import build_medical_graph, create_nodes
-        from mediquery_rag_tpu.llm import RuleLLM
-        from mediquery_rag_tpu.serve import SearchServer
+        from mediquery_rag.graph import build_medical_graph, create_nodes
+        from mediquery_rag.llm import RuleLLM
+        from mediquery_rag.serve import SearchServer
 
         store = build_document_store("data/medical_data.txt",
                                      HashingEmbedder(256), CFG)
@@ -326,7 +326,7 @@ class TestHTTPServer:
         assert one["usage"]["prompt_tokens"] > 0
 
     def test_concurrent_embeddings_coalesce(self, server):
-        """N concurrent /v1/embeddings callers become few TPU embed calls
+        """N concurrent /v1/embeddings callers become few device embed calls
         (server-side MicroBatcher), with each caller getting its own rows."""
         srv, port = server
         results = {}
@@ -415,7 +415,7 @@ def test_mutation_while_serving_is_safe():
     """Adds/deletes while the batcher serves concurrent searches: the index
     swap is atomic (functional indexes, single mutator), so searches must
     never crash and must eventually see the new docs."""
-    from mediquery_rag_tpu.ingest.parser import Chunk
+    from mediquery_rag.ingest.parser import Chunk
 
     store = build_document_store("data/medical_data.txt",
                                  HashingEmbedder(256), CFG)

@@ -9,9 +9,9 @@ lockstep ``Generator.generate`` path on the same prompts.
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.config import DecoderConfig
-from mediquery_rag_tpu.models.generate import Generator
-from mediquery_rag_tpu.serve.llm import LLMServer
+from mediquery_rag.config import DecoderConfig
+from mediquery_rag.models.generate import Generator
+from mediquery_rag.serve.llm import LLMServer
 
 TINY = DecoderConfig(vocab_size=384, hidden=64, layers=2, heads=4,
                      mlp_dim=128, max_len=1024, dtype="float32")
@@ -124,7 +124,7 @@ class TestSessions:
     output to a cold full prefill of the same transcript."""
 
     def test_two_turn_session_matches_cold(self, gen):
-        from mediquery_rag_tpu.serve.llm import ChatSession
+        from mediquery_rag.serve.llm import ChatSession
         with LLMServer(gen, slots=2, chunk=8) as srv:
             s = ChatSession(srv, max_new_tokens=24)
             r1 = s.ask("高血压饮食")
@@ -135,14 +135,14 @@ class TestSessions:
             transcript = list(s.messages[:-1])      # up to the 2nd question
 
         # cold server: full prefill of the same rendered transcript
-        from mediquery_rag_tpu.llm.tpu_client import _cut_turn, render_chat
+        from mediquery_rag.llm.device_client import _cut_turn, render_chat
         with LLMServer(gen, slots=2, chunk=8) as srv2:
             out = srv2.complete(render_chat(transcript), max_new_tokens=24)
         assert _cut_turn(out, "plain") == r2
         assert isinstance(r1, str)
 
     def test_session_survives_other_traffic(self, gen):
-        from mediquery_rag_tpu.serve.llm import ChatSession
+        from mediquery_rag.serve.llm import ChatSession
         with LLMServer(gen, slots=3, chunk=8) as srv:
             s = ChatSession(srv, max_new_tokens=16)
             s.ask("头痛")
@@ -152,7 +152,7 @@ class TestSessions:
             assert srv.stats["extends"] == 1
 
     def test_eviction_under_session_pressure(self, gen):
-        from mediquery_rag_tpu.serve.llm import ChatSession
+        from mediquery_rag.serve.llm import ChatSession
         with LLMServer(gen, slots=2, chunk=8) as srv:
             sessions = [ChatSession(srv, max_new_tokens=8) for _ in range(4)]
             for s in sessions:
@@ -181,7 +181,7 @@ class TestConstrainedServing:
 
     def test_mixed_schemas_one_batch(self, gen):
         import json
-        from mediquery_rag_tpu.models.constrain import (
+        from mediquery_rag.models.constrain import (
             EXTRACT_SCHEMA, FOLLOWUP_SCHEMA, RISK_SCHEMA, JsonConstraint)
         with LLMServer(gen, slots=4, chunk=8) as srv:
             futs = [
@@ -203,7 +203,7 @@ class TestConstrainedServing:
 
     def test_matches_lockstep_constrained(self, gen):
         # greedy constrained serving == the Generator's constrained path
-        from mediquery_rag_tpu.models.constrain import (RISK_SCHEMA,
+        from mediquery_rag.models.constrain import (RISK_SCHEMA,
                                                         JsonConstraint)
         c = JsonConstraint.compile(RISK_SCHEMA, gen.tokenizer,
                                    vocab_size=gen.cfg.vocab_size)
@@ -214,15 +214,15 @@ class TestConstrainedServing:
 
     def test_tiny_budget_cannot_truncate(self, gen):
         import json
-        from mediquery_rag_tpu.models.constrain import RISK_SCHEMA
+        from mediquery_rag.models.constrain import RISK_SCHEMA
         with LLMServer(gen, slots=2, chunk=8) as srv:
             out = srv.complete("x", schema=RISK_SCHEMA, max_new_tokens=1,
                                temperature=0.9)
         json.loads(out)
 
     def test_app_risk_seam_over_server(self, gen):
-        from mediquery_rag_tpu.app.risk import assess_answer_risk
-        from mediquery_rag_tpu.serve.llm import ServedLLMClient
+        from mediquery_rag.app.risk import assess_answer_risk
+        from mediquery_rag.serve.llm import ServedLLMClient
         with LLMServer(gen, slots=2, chunk=8) as srv:
             client = ServedLLMClient(srv, temperature=0.9)
             r = assess_answer_risk("疼痛程度如何？", "大概5分吧", client)
@@ -257,7 +257,7 @@ class TestStreaming:
 
 class TestServedClient:
     def test_llm_client_seam(self, gen):
-        from mediquery_rag_tpu.serve.llm import ServedLLMClient
+        from mediquery_rag.serve.llm import ServedLLMClient
         with LLMServer(gen, slots=2, chunk=8) as srv:
             client = ServedLLMClient(srv, max_new_tokens=16)
             out = client.complete("血压高怎么办？")
@@ -265,13 +265,13 @@ class TestServedClient:
 
 
 class TestOpenAIChatEndpoint:
-    """/v1/chat/completions over the TPU LLM server: the framework SERVES
+    """/v1/chat/completions over the on-device LLM server: the framework SERVES
     the OpenAI-compatible API the reference consumed from Ollama — the
     repo's own HTTPChatClient must work against it unchanged."""
 
     @pytest.fixture(scope="class")
     def http(self, gen):
-        from mediquery_rag_tpu.serve.server import SearchServer
+        from mediquery_rag.serve.server import SearchServer
 
         class _NoStore:
             def batch_search(self, queries, k, **kw):
@@ -332,9 +332,9 @@ class TestOpenAIChatEndpoint:
         assert ei.value.code == 400
 
     def test_own_http_client_works_against_it(self, http):
-        from mediquery_rag_tpu.llm.client import HTTPChatClient
+        from mediquery_rag.llm.client import HTTPChatClient
         client = HTTPChatClient(base_url=f"http://127.0.0.1:{http}",
-                                model="mediquery-tpu")
+                                model="mediquery")
         out = client.complete("头痛怎么办")
         assert isinstance(out, str)
 
@@ -351,7 +351,7 @@ class TestOpenAIChatEndpoint:
 
     def test_schema_extension_yields_valid_json(self, http):
         import json as js
-        from mediquery_rag_tpu.models.constrain import RISK_SCHEMA
+        from mediquery_rag.models.constrain import RISK_SCHEMA
         out = self._post(http, {
             "messages": [{"role": "user", "content": "疼痛5分"}],
             "temperature": 0.9, "schema": RISK_SCHEMA})
@@ -415,7 +415,7 @@ class TestOpenAIChatEndpoint:
 
 
 class TestCancellationAndBackpressure:
-    """A gone client must not keep burning TPU: cancellation frees the
+    """A gone client must not keep burning device time: cancellation frees the
     lane at the next chunk boundary; a bounded backlog sheds load with
     ServerSaturated (HTTP 429) instead of queueing unboundedly."""
 
@@ -442,7 +442,7 @@ class TestCancellationAndBackpressure:
 
     def test_backlog_rejection_and_drain(self, gen):
         import time
-        from mediquery_rag_tpu.serve.llm import ServerSaturated
+        from mediquery_rag.serve.llm import ServerSaturated
         with LLMServer(gen, slots=1, chunk=4, max_backlog=1) as srv:
             f1 = srv.submit(PROMPTS[0], max_new_tokens=256)
             while srv.stats["prefills"] == 0:  # f1 owns the only lane
@@ -455,7 +455,7 @@ class TestCancellationAndBackpressure:
             assert isinstance(f2.result(timeout=300), str)
 
     def test_sse_disconnect_cancels_lane(self, gen):
-        from mediquery_rag_tpu.serve.server import SearchServer
+        from mediquery_rag.serve.server import SearchServer
 
         class _NoStore:
             def batch_search(self, queries, k, **kw):
@@ -532,33 +532,33 @@ class TestStreamVisible:
     STOPS = ("<|user|>", "<|end|>")
 
     def test_plain_text_passes(self):
-        from mediquery_rag_tpu.serve.server import _stream_visible
+        from mediquery_rag.serve.server import _stream_visible
         assert _stream_visible("你好，多喝水", self.STOPS) == (6, False)
 
     def test_full_marker_cuts(self):
-        from mediquery_rag_tpu.serve.server import _stream_visible
+        from mediquery_rag.serve.server import _stream_visible
         n, hit = _stream_visible("多喝水<|user|>假问题", self.STOPS)
         assert (n, hit) == (3, True)
 
     def test_partial_marker_held_back(self):
-        from mediquery_rag_tpu.serve.server import _stream_visible
+        from mediquery_rag.serve.server import _stream_visible
         n, hit = _stream_visible("多喝水<|us", self.STOPS)
         assert (n, hit) == (3, False)
 
     def test_trailing_whitespace_held(self):
-        from mediquery_rag_tpu.serve.server import _stream_visible
+        from mediquery_rag.serve.server import _stream_visible
         n, hit = _stream_visible("多喝水 \n", self.STOPS)
         assert (n, hit) == (3, False)
 
     def test_whitespace_before_marker_stripped(self):
-        from mediquery_rag_tpu.serve.server import _stream_visible
+        from mediquery_rag.serve.server import _stream_visible
         n, hit = _stream_visible("多喝水 \n<|end|>x", self.STOPS)
         assert (n, hit) == (3, True)
 
     def test_incremental_totals_match_cut_turn(self):
         """Feeding any prefix split must emit exactly _cut_turn(full)."""
-        from mediquery_rag_tpu.llm.tpu_client import _cut_turn, _turn_stops
-        from mediquery_rag_tpu.serve.server import _stream_visible
+        from mediquery_rag.llm.device_client import _cut_turn, _turn_stops
+        from mediquery_rag.serve.server import _stream_visible
         stops = _turn_stops("plain")
         full = "  建议多休息、多喝水。 <|user|>下一个问题"
         for split in range(len(full)):
@@ -694,20 +694,20 @@ class TestSpeculativeServing:
 
     def test_constrained_lane_forces_fallback(self, gen, draft):
         import json
-        from mediquery_rag_tpu.models.constrain import RISK_SCHEMA
+        from mediquery_rag.models.constrain import RISK_SCHEMA
         with LLMServer(gen, slots=2, chunk=8, draft=draft, gamma=3) as srv:
             out = srv.complete("血压 180/120", schema=RISK_SCHEMA)
         json.loads(out)
 
     def test_session_over_spec_server_matches_cold(self, gen, draft):
-        from mediquery_rag_tpu.serve.llm import ChatSession
+        from mediquery_rag.serve.llm import ChatSession
         with LLMServer(gen, slots=2, chunk=8, draft=draft, gamma=3) as srv:
             s = ChatSession(srv, max_new_tokens=24)
             s.ask("高血压饮食")
             r2 = s.ask("运动呢？")
             assert srv.stats["extends"] == 1
             transcript = list(s.messages[:-1])
-        from mediquery_rag_tpu.llm.tpu_client import _cut_turn, render_chat
+        from mediquery_rag.llm.device_client import _cut_turn, render_chat
         with LLMServer(gen, slots=2, chunk=8) as srv2:   # no draft
             out = srv2.complete(render_chat(transcript), max_new_tokens=24)
         assert _cut_turn(out, "plain") == r2
@@ -768,7 +768,7 @@ class TestSlotStepPrimitive:
         l_ref, c_ref = jax.jit(gen.model.decode_step)(
             gen.params, cache, step_tok)
 
-        from mediquery_rag_tpu.models.decoder import KVCache
+        from mediquery_rag.models.decoder import KVCache
         B = ids.shape[0]
         slot_cache = KVCache(
             k=cache.k, v=cache.v, key_mask=cache.key_mask,
@@ -795,7 +795,7 @@ class TestSlotStepPrimitive:
         logits, cache = jax.jit(
             lambda p, i, m: gen.model.prefill(p, i, m, 256))(
             gen.params, jnp.asarray(ids), jnp.asarray(mask))
-        from mediquery_rag_tpu.models.decoder import KVCache
+        from mediquery_rag.models.decoder import KVCache
         B = ids.shape[0]
         slot_cache = KVCache(
             k=cache.k, v=cache.v, key_mask=cache.key_mask,
@@ -822,7 +822,7 @@ class TestSlotStepPrimitive:
         logits, cache = jax.jit(
             lambda p, i, m: gen.model.prefill(p, i, m, 256))(
             gen.params, jnp.asarray(ids), jnp.asarray(mask))
-        from mediquery_rag_tpu.models.decoder import KVCache
+        from mediquery_rag.models.decoder import KVCache
         B = ids.shape[0]
         base = KVCache(
             k=cache.k, v=cache.v, key_mask=cache.key_mask,
@@ -861,7 +861,7 @@ class TestSlotStepPrimitive:
         _, cache = jax.jit(
             lambda p, i, m: gen.model.prefill(p, i, m, 256))(
             gen.params, jnp.asarray(ids), jnp.asarray(mask))
-        from mediquery_rag_tpu.models.decoder import KVCache
+        from mediquery_rag.models.decoder import KVCache
         B = ids.shape[0]
         base = KVCache(
             k=cache.k, v=cache.v, key_mask=cache.key_mask,
@@ -907,7 +907,7 @@ class TestTopP:
     def test_http_top_p_accepted(self, gen):
         import json as js
         import urllib.request
-        from mediquery_rag_tpu.serve.server import SearchServer
+        from mediquery_rag.serve.server import SearchServer
 
         class _NoStore:
             def batch_search(self, queries, k, **kw):

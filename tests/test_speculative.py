@@ -9,9 +9,9 @@ with a perfectly-agreeing draft (the target itself).
 
 import pytest
 
-from mediquery_rag_tpu.config import DecoderConfig
-from mediquery_rag_tpu.models.generate import Generator
-from mediquery_rag_tpu.models.speculative import SpeculativeGenerator
+from mediquery_rag.config import DecoderConfig
+from mediquery_rag.models.generate import Generator
+from mediquery_rag.models.speculative import SpeculativeGenerator
 
 TARGET = DecoderConfig(vocab_size=384, hidden=64, layers=2, heads=4,
                        mlp_dim=128, max_len=1024, dtype="float32")
@@ -116,7 +116,7 @@ class TestDistill:
     projected speedup into a real one."""
 
     def test_distilled_draft_lifts_acceptance(self, target):
-        from mediquery_rag_tpu.models.distill import distill_draft
+        from mediquery_rag.models.distill import distill_draft
         prompts = ["高血压饮食", "糖尿病运动", "头痛", "咳嗽", "失眠", "发烧"]
         draft = distill_draft(target, DRAFT, prompts, max_new_tokens=64,
                               epochs=120)
@@ -129,7 +129,7 @@ class TestDistill:
         assert spec.last_stats["tokens_per_round"] > 3.0
 
     def test_distill_vocab_mismatch_raises(self, target):
-        from mediquery_rag_tpu.models.distill import distill_draft
+        from mediquery_rag.models.distill import distill_draft
         bad = DecoderConfig(vocab_size=512, hidden=32, layers=1, heads=2,
                             mlp_dim=64, max_len=512, dtype="float32")
         with pytest.raises(ValueError, match="vocab"):
@@ -138,14 +138,14 @@ class TestDistill:
 
 class TestDistillCLI:
     def test_cli_roundtrip_serves_lossless(self, target, tmp_path):
-        """python -m mediquery_rag_tpu.models.distill --target <ckpt> must
+        """python -m mediquery_rag.models.distill --target <ckpt> must
         produce a checkpoint that Generator.from_checkpoint restores and
         LLMServer(draft=...) serves — output still the target's exact
         greedy continuation."""
         import sys
 
-        from mediquery_rag_tpu.models import distill as dmod
-        from mediquery_rag_tpu.serve.llm import LLMServer
+        from mediquery_rag.models import distill as dmod
+        from mediquery_rag.serve.llm import LLMServer
 
         tdir, odir = tmp_path / "target", tmp_path / "draft"
         target.save(str(tdir))

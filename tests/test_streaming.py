@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mediquery_rag_tpu.config import EngineConfig
-from mediquery_rag_tpu.engine import FlatIndex, StreamingFlatIndex
-from mediquery_rag_tpu.obs import recall_at_k
-from mediquery_rag_tpu.ops import flat_search_xla
+from mediquery_rag.config import EngineConfig
+from mediquery_rag.engine import FlatIndex, StreamingFlatIndex
+from mediquery_rag.obs import recall_at_k
+from mediquery_rag.ops import flat_search_xla
 
 
 def _vecs(n, d, seed=0):
@@ -17,8 +17,8 @@ def _vecs(n, d, seed=0):
     return x / jnp.linalg.norm(x, axis=-1, keepdims=True)
 
 
-CFG8 = EngineConfig(dim=64, dtype="int8", corpus_tile=256, query_tile=32)
-CFGF = EngineConfig(dim=64, dtype="float32", corpus_tile=256, query_tile=32)
+CFG8 = EngineConfig(dim=64, dtype="int8", corpus_tile=256)
+CFGF = EngineConfig(dim=64, dtype="float32", corpus_tile=256)
 
 
 class TestStreamingFlatIndex:
@@ -109,7 +109,7 @@ class TestStreamingFlatIndex:
 
     def test_bf16_save_load(self, tmp_path):
         cfg = EngineConfig(dim=64, dtype="bfloat16", corpus_tile=256,
-                           query_tile=32)
+                           )
         c = _vecs(1500, 64, seed=10)
         idx = StreamingFlatIndex.build(np.asarray(c), cfg, chunk_rows=512)
         idx.save(str(tmp_path / "bx"))

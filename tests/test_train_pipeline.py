@@ -3,11 +3,11 @@
 import jax
 import numpy as np
 
-from mediquery_rag_tpu.config import EmbedderConfig, TrainConfig
-from mediquery_rag_tpu.ingest import parse_corpus_file
-from mediquery_rag_tpu.models import HashCharTokenizer
-from mediquery_rag_tpu.models.data import PairLoader, pairs_from_chunks
-from mediquery_rag_tpu.models.trainer import ContrastiveTrainer
+from mediquery_rag.config import EmbedderConfig, TrainConfig
+from mediquery_rag.ingest import parse_corpus_file
+from mediquery_rag.models import HashCharTokenizer
+from mediquery_rag.models.data import PairLoader, pairs_from_chunks
+from mediquery_rag.models.trainer import ContrastiveTrainer
 
 TINY = EmbedderConfig(vocab_size=512, hidden=64, layers=2, heads=4,
                       mlp_dim=128, max_len=128, dtype="float32")
@@ -65,8 +65,8 @@ class TestHeldoutEval:
         """Every held-out gold id exists in the corpus, and no held-out
         query string appears verbatim anywhere in the corpus (else the
         'unseen phrasing' claim of benchmarks/retrieval_eval.py is void)."""
-        from mediquery_rag_tpu.ingest import parse_corpus_file
-        from mediquery_rag_tpu.models.eval import load_heldout
+        from mediquery_rag.ingest import parse_corpus_file
+        from mediquery_rag.models.eval import load_heldout
         chunks = parse_corpus_file("data/medical_data.txt")
         ids = {c.chunk_id for c in chunks}
         corpus_text = open("data/medical_data.txt", encoding="utf-8").read()
@@ -80,7 +80,7 @@ class TestHeldoutEval:
         """retrieval_recall with a perfect embedder scores 1.0, with an
         adversarial one 0 at k=1."""
         import numpy as np
-        from mediquery_rag_tpu.models.eval import retrieval_recall
+        from mediquery_rag.models.eval import retrieval_recall
         docs = ["a", "b", "c", "d"]
         ids = ["1", "2", "3", "4"]
         basis = np.eye(4, 8, dtype=np.float32)
